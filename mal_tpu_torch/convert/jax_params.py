@@ -12,6 +12,12 @@ is assigned and every flax leaf is consumed, or it raises. Layouts:
   pose heads' `net.{i}`), as `mal_tpu/convert/export_pth.py` names them.
 `port_name` exposes the name mapping, so a test can line up `mal_tpu`'s
 gradients with `named_parameters()`.
+
+`load_jax_mask2former(model, variables)` does the same for the frozen
+segmenter: `mask2former_state_dict` turns `mal_tpu`'s Mask2Former variables
+into the detectron2 keys that `mal_tpu/convert/mask2former.py:
+export_mask2former_state` writes and the port's `Mask2Former` carries,
+splitting each Swin stage's `nn.scan`-stacked block parameters per block.
 """
 
 from __future__ import annotations
@@ -113,6 +119,169 @@ def load_jax_variables(model: torch.nn.Module, params: Mapping,
     sd = flax_to_state_dict(params, batch_stats, model.cfg.pose_cnn)
     target = {k: v for k, v in model.state_dict().items()
               if not k.endswith("num_batches_tracked")}
+    missing = sorted(set(target) - set(sd))
+    unused = sorted(set(sd) - set(target))
+    if missing or unused:
+        raise KeyError(f"port tensors without a flax leaf: {missing}; "
+                       f"flax leaves without a port tensor: {unused}")
+    with torch.no_grad():
+        for key, dst in target.items():
+            src = torch.tensor(sd[key])
+            if src.shape != dst.shape:
+                raise ValueError(f"{key}: flax {tuple(src.shape)} vs port "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# The frozen Mask2Former segmenter
+# ---------------------------------------------------------------------------
+
+class _Leaves:
+    """A flax tree's leaves by path, each taken at most once."""
+
+    def __init__(self, tree: Mapping):
+        self.left = {path: np.asarray(v) for path, v in _leaves(tree)}
+
+    def take(self, *path: str) -> np.ndarray:
+        try:
+            return self.left.pop(path)
+        except KeyError:
+            raise KeyError(f"no flax leaf {'/'.join(path)}") from None
+
+    def dense(self, sd: dict, key: str, *path: str, bias: bool = True):
+        sd[key + ".weight"] = self.take(*path, "kernel").T
+        if bias:
+            sd[key + ".bias"] = self.take(*path, "bias")
+
+    def conv(self, sd: dict, key: str, *path: str, bias: bool = True):
+        sd[key + ".weight"] = self.take(*path, "kernel").transpose(3, 2, 0, 1)
+        if bias:
+            sd[key + ".bias"] = self.take(*path, "bias")
+
+    def norm(self, sd: dict, key: str, *path: str):
+        sd[key + ".weight"] = self.take(*path, "scale")
+        sd[key + ".bias"] = self.take(*path, "bias")
+
+
+def _swin_state(lv: _Leaves, size: str, sd: dict) -> None:
+    from mal_tpu_torch.ops.cuda.window_attention import relative_position_index
+    from mal_tpu_torch.segment.swin import CONFIGS
+
+    _, depths, _, ws = CONFIGS[size]
+    p = "backbone."
+    lv.conv(sd, p + "patch_embed.proj", "backbone", "patch_embed")
+    lv.norm(sd, p + "patch_embed.norm", "backbone", "patch_norm")
+    for s, depth in enumerate(depths):
+        # the stage's blocks are one nn.scan'd block: leading depth axis
+        stacked = _Leaves({})
+        prefix = ("backbone", f"stage{s}", "blocks")
+        for path in [q for q in lv.left if q[:3] == prefix]:
+            stacked.left[path[3:]] = lv.left.pop(path)
+        if any(v.shape[0] != depth for v in stacked.left.values()):
+            raise ValueError(f"stage {s} leaves are not stacked {depth} deep")
+        for b in range(depth):
+            blk = _Leaves({})
+            blk.left = {k: v[b] for k, v in stacked.left.items()}
+            bp = f"{p}layers.{s}.blocks.{b}."
+            blk.norm(sd, bp + "norm1", "norm1")
+            sd[bp + "attn.relative_position_bias_table"] = blk.take(
+                "attn", "relative_position_bias_table")
+            sd[bp + "attn.relative_position_index"] = relative_position_index(ws)
+            blk.dense(sd, bp + "attn.qkv", "attn", "qkv")
+            blk.dense(sd, bp + "attn.proj", "attn", "proj")
+            blk.norm(sd, bp + "norm2", "norm2")
+            blk.dense(sd, bp + "mlp.fc1", "mlp_fc1")
+            blk.dense(sd, bp + "mlp.fc2", "mlp_fc2")
+            if blk.left:
+                raise KeyError(f"stage {s} block leaves without a port "
+                               f"tensor: {sorted(blk.left)}")
+        if s < 3:
+            lv.norm(sd, f"{p}layers.{s}.downsample.norm", "backbone",
+                    f"merge{s}", "norm")
+            lv.dense(sd, f"{p}layers.{s}.downsample.reduction", "backbone",
+                     f"merge{s}", "reduction", bias=False)
+        lv.norm(sd, f"{p}norm{s}", "backbone", f"out_norm{s}")
+
+
+def _pixel_decoder_state(lv: _Leaves, sd: dict) -> None:
+    p, t = "sem_seg_head.pixel_decoder.", "pixel_decoder"
+    for i in range(3):
+        lv.conv(sd, f"{p}input_proj.{i}.0", t, f"input_proj_{i}")
+        lv.norm(sd, f"{p}input_proj.{i}.1", t, f"input_proj_gn_{i}")
+    sd[p + "transformer.level_embed"] = lv.take(t, "level_embed")
+    layers = sorted({k[1] for k in lv.left if k[0] == t
+                     and re.fullmatch(r"layer_\d+", k[1])},
+                    key=lambda n: int(n[len("layer_"):]))
+    for l, name in enumerate(layers):
+        lp = f"{p}transformer.encoder.layers.{l}."
+        for sub in ("sampling_offsets", "attention_weights", "value_proj",
+                    "output_proj"):
+            lv.dense(sd, lp + "self_attn." + sub, t, name, "self_attn", sub)
+        lv.norm(sd, lp + "norm1", t, name, "norm1")
+        lv.dense(sd, lp + "linear1", t, name, "linear1")
+        lv.dense(sd, lp + "linear2", t, name, "linear2")
+        lv.norm(sd, lp + "norm2", t, name, "norm2")
+    lv.conv(sd, p + "adapter_1", t, "fpn_adapter", bias=False)
+    lv.norm(sd, p + "adapter_1.norm", t, "adapter_gn")
+    lv.conv(sd, p + "layer_1", t, "fpn_conv", bias=False)
+    lv.norm(sd, p + "layer_1.norm", t, "layer_gn")
+    lv.conv(sd, p + "mask_features", t, "mask_features")
+
+
+def _predictor_state(lv: _Leaves, sd: dict) -> None:
+    p, t = "sem_seg_head.predictor.", "predictor"
+    for name in ("query_feat", "query_embed", "level_embed"):
+        sd[f"{p}{name}.weight"] = lv.take(t, name)
+    lv.norm(sd, p + "decoder_norm", t, "decoder_norm")
+    lv.dense(sd, p + "class_embed", t, "class_embed")
+    for i in range(3):
+        lv.dense(sd, f"{p}mask_embed.layers.{i}", t, "mask_embed", f"fc{i}")
+
+    def mha(key: str, name: str):
+        # torch's packed in_proj: q, k, v stacked on the output axis
+        sd[key + ".in_proj_weight"] = np.concatenate(
+            [lv.take(t, name, n, "kernel").T for n in "qkv"])
+        sd[key + ".in_proj_bias"] = np.concatenate(
+            [lv.take(t, name, n, "bias") for n in "qkv"])
+        lv.dense(sd, key + ".out_proj", t, name, "out")
+
+    n_layers = len({k[1] for k in lv.left if k[0] == t
+                    and k[1].startswith("xattn_")})
+    for l in range(n_layers):
+        x = f"{p}transformer_cross_attention_layers.{l}."
+        mha(x + "multihead_attn", f"xattn_{l}")
+        lv.norm(sd, x + "norm", t, f"xnorm_{l}")
+        s = f"{p}transformer_self_attention_layers.{l}."
+        mha(s + "self_attn", f"sattn_{l}")
+        lv.norm(sd, s + "norm", t, f"snorm_{l}")
+        f = f"{p}transformer_ffn_layers.{l}."
+        lv.dense(sd, f + "linear1", t, f"ffn1_{l}")
+        lv.dense(sd, f + "linear2", t, f"ffn2_{l}")
+        lv.norm(sd, f + "norm", t, f"fnorm_{l}")
+
+
+def mask2former_state_dict(params: Mapping, size: str = "large"
+                           ) -> dict[str, np.ndarray]:
+    """`mal_tpu` Mask2Former params -> the detectron2-key state dict of the
+    port's `Mask2Former` (the `relative_position_index` buffers included,
+    as detectron2 checkpoints carry them). Raises if a leaf is left over."""
+    lv = _Leaves(params)
+    sd: dict[str, np.ndarray] = {}
+    _swin_state(lv, size, sd)
+    _pixel_decoder_state(lv, sd)
+    _predictor_state(lv, sd)
+    if lv.left:
+        raise KeyError(f"flax leaves without a port tensor: "
+                       f"{sorted('/'.join(k) for k in lv.left)}")
+    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
+
+
+def load_jax_mask2former(model: torch.nn.Module, variables: Mapping) -> None:
+    """Fill `model` (a port `Mask2Former`) from `mal_tpu`'s flax variables
+    ({"params": ...}, numpy): every tensor assigned, every leaf consumed."""
+    sd = mask2former_state_dict(variables["params"], model.swin_size)
+    target = model.state_dict()
     missing = sorted(set(target) - set(sd))
     unused = sorted(set(sd) - set(target))
     if missing or unused:

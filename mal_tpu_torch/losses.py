@@ -82,18 +82,21 @@ class MonoLossOut(NamedTuple):
 
 def mono_losses(noise: Tensor | None, disp: Tensor, color: Tensor,
                 warped: Sequence[Tensor], identity: Sequence[Tensor],
-                smoothness_weight: float = 1e-3, reproj_fn=reprojection_loss,
+                syn: Sequence[Tensor] = (), smoothness_weight: float = 1e-3,
+                reproj_fn=reprojection_loss,
                 avg_reprojection: bool = False,
                 disable_automasking: bool = False) -> MonoLossOut:
     """Teacher losses (`manydepth/loss_utils.py:57-129`).
 
     `noise` (B, 1, H, W) is a standard-normal draw; 1e-5 of it breaks the
     automask's ties, as `jax.random.normal(rng, ...) * 1e-5` does in
-    `mal_tpu`. `avg_reprojection` takes the per-pixel mean over source
-    frames instead of the min (monodepth2's semantics).
+    `mal_tpu`. `syn`: the temporal hint's synthesized frames, extra
+    min-reprojection candidates. `avg_reprojection` takes the per-pixel
+    mean over source frames instead of the min (monodepth2's semantics).
     """
-    reproj_min = _reduce_sources([reproj_fn(p, color) for p in warped],
-                                 avg_reprojection)
+    reproj_min = _reduce_sources(
+        [reproj_fn(p, color) for p in list(warped) + list(syn)],
+        avg_reprojection)
     if disable_automasking:
         mask = torch.ones_like(reproj_min)
     else:
@@ -119,7 +122,7 @@ class MultiLossOut(NamedTuple):
 def multi_losses(disp: Tensor, color: Tensor, warped: Sequence[Tensor],
                  multi_depth: Tensor, mono_depth: Tensor,
                  consistency_mask_in: Tensor, augmentation_mask: Tensor,
-                 mono_min_reproj: Tensor,
+                 mono_min_reproj: Tensor, syn: Sequence[Tensor] = (),
                  ensemble_min_reproj: Tensor | None = None,
                  dual_distil_mono_depth: Tensor | None = None,
                  smoothness_weight: float = 1e-3, reproj_fn=reprojection_loss,
@@ -128,11 +131,14 @@ def multi_losses(disp: Tensor, color: Tensor, warped: Sequence[Tensor],
     (`manydepth/loss_utils.py:131-281`).
 
     consistency_mask_in (B, H, W): cost-volume confidence x matching mask;
-    augmentation_mask (B, 1, 1, 1). The distillation target is the per-pixel
-    argmin over the {mono, ensemble, multi} reprojection errors.
+    augmentation_mask (B, 1, 1, 1); syn: the temporal hint's synthesized
+    frames (`main_temporal`), extra min-reprojection candidates. The
+    distillation target is the per-pixel argmin over the {mono, ensemble,
+    multi} reprojection errors.
     """
-    multi_min_reproj = _reduce_sources([reproj_fn(p, color) for p in warped],
-                                       avg_reprojection)
+    multi_min_reproj = _reduce_sources(
+        [reproj_fn(p, color) for p in list(warped) + list(syn)],
+        avg_reprojection)
 
     mask = consistency_mask_in[:, None] * (1.0 - augmentation_mask)
     consistency_mask = 1.0 - mask

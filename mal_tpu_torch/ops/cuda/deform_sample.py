@@ -1,0 +1,138 @@
+"""Kernel K5, multi-scale deformable attention sampling, as a CUDA kernel
+for Hopper.
+
+Counterpart of `mal_tpu.segment.msdeform.ms_deform_attn_core` (which calls
+the Pallas TPU kernel `deform_sample_fused_v4` on the TPU). The kernel
+source is `mal_tpu_torch/csrc/deform_sample.cu`; its header says what
+bounds it and how it is laid out.
+
+- `ms_deform_attn_core`: the kernel's wrapper. For CUDA tensors it checks
+  them and launches the kernel, counting each launch in
+  `ms_deform_attn_core.launches`; for CPU tensors it returns the plain
+  version. It never falls back from the kernel to the plain version.
+- `ms_deform_attn_core_per_level`: the plain PyTorch version, one
+  `grid_sample` per level (`mal_tpu/segment/msdeform.py:27-52`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from mal_tpu_torch.ops.interp import grid_sample
+
+Tensor = torch.Tensor
+
+SOURCE = "deform_sample"
+_MAX_LEVELS = 4
+
+
+def ms_deform_attn_core_per_level(value: Tensor,
+                                  spatial_shapes: list[tuple[int, int]],
+                                  sampling_locations: Tensor,
+                                  attention_weights: Tensor) -> Tensor:
+    """Deformable sampling, plain torch.
+
+    value (B, sum(HW), heads, ch); sampling_locations (B, Lq, heads, L, P, 2)
+    as (x, y) in [0, 1]; attention_weights (B, Lq, heads, L, P). Returns
+    (B, Lq, heads * ch): per level, a bilinear sample with zeros padding
+    and align_corners=False, weighted and summed over levels and points.
+    """
+    B, _, H_, C = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    values = value.split([h * w for h, w in spatial_shapes], dim=1)
+    out = 0.0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        # heads fold into the batch: each head samples its own value slice
+        v = values[lvl].reshape(B, h, w, H_, C).permute(0, 3, 4, 1, 2)
+        v = v.reshape(B * H_, C, h, w)
+        g = 2.0 * sampling_locations[:, :, :, lvl] - 1.0   # (B, Lq, H_, P, 2)
+        g = g.permute(0, 2, 1, 3, 4).reshape(B * H_, Lq, P, 2)
+        sampled = grid_sample(v, g, padding_mode="zeros", align_corners=False)
+        sampled = sampled.reshape(B, H_, C, Lq, P)
+        w_l = attention_weights[:, :, :, lvl]              # (B, Lq, H_, P)
+        out = out + torch.einsum("bhclp,blhp->blhc", sampled, w_l)
+    return out.reshape(B, Lq, H_ * C)
+
+
+def _check(value: Tensor, spatial_shapes, loc: Tensor, aw: Tensor) -> None:
+    """Raise on anything the kernel does not take."""
+    for name, x in {"value": value, "sampling_locations": loc,
+                    "attention_weights": aw}.items():
+        if x.device != value.device:
+            raise ValueError(f"{name} is on {x.device}, value on {value.device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if value.dim() != 4 or loc.dim() != 6 or aw.dim() != 5:
+        raise ValueError("value, sampling_locations, attention_weights must be "
+                         "(B, S, heads, ch), (B, Lq, heads, L, P, 2), "
+                         "(B, Lq, heads, L, P)")
+    B, S, H_, C = value.shape
+    _, Lq, _, L, P, _ = loc.shape
+    if not 1 <= L <= _MAX_LEVELS or len(spatial_shapes) != L:
+        raise ValueError(f"{len(spatial_shapes)} shapes for {L} levels; the "
+                         f"kernel takes 1 to {_MAX_LEVELS}")
+    if sum(h * w for h, w in spatial_shapes) != S:
+        raise ValueError(f"levels {spatial_shapes} do not sum to {S} tokens")
+    if loc.shape != (B, Lq, H_, L, P, 2) or aw.shape != (B, Lq, H_, L, P):
+        raise ValueError(f"locations {tuple(loc.shape)} / weights "
+                         f"{tuple(aw.shape)} do not fit value {tuple(value.shape)}")
+    if H_ * C > 1024:
+        raise ValueError(f"heads x channels = {H_ * C} is above 1024")
+
+
+def _library() -> ctypes.CDLL:
+    from mal_tpu_torch.ops.cuda.build import load_library
+
+    lib = load_library(SOURCE)
+    fn = lib.deform_sample_f32
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4
+                       + [ctypes.POINTER(ctypes.c_int)] * 3
+                       + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        lib.deform_sample_error_string.argtypes = [ctypes.c_int]
+        lib.deform_sample_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ms_deform_attn_core(value: Tensor, spatial_shapes: list[tuple[int, int]],
+                        sampling_locations: Tensor,
+                        attention_weights: Tensor) -> Tensor:
+    """Deformable sampling (B, Lq, heads * ch); arguments as
+    `ms_deform_attn_core_per_level`. CUDA tensors go to the kernel, CPU
+    tensors to the plain version."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_core_per_level(value, spatial_shapes,
+                                             sampling_locations,
+                                             attention_weights)
+    if value.device.type != "cuda":
+        raise ValueError(f"unsupported device {value.device}")
+    _check(value, spatial_shapes, sampling_locations, attention_weights)
+    B, S, H_, C = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    out = torch.empty((B, Lq, H_ * C), dtype=torch.float32, device=value.device)
+    starts = [0]
+    for h, w in spatial_shapes[:-1]:
+        starts.append(starts[-1] + h * w)
+    ints = ctypes.c_int * L
+    lib = _library()
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.deform_sample_f32(
+            value.data_ptr(), sampling_locations.data_ptr(),
+            attention_weights.data_ptr(), out.data_ptr(),
+            ints(*(h for h, _ in spatial_shapes)),
+            ints(*(w for _, w in spatial_shapes)), ints(*starts),
+            B, S, Lq, H_, C, L, P, stream)
+    if err:
+        msg = lib.deform_sample_error_string(err).decode()
+        raise RuntimeError(f"ms_deform_attn_core launch failed: {msg} ({err})")
+    ms_deform_attn_core.launches += 1
+    return out
+
+
+ms_deform_attn_core.launches = 0

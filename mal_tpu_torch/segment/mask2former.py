@@ -1,0 +1,152 @@
+"""Mask2Former in eval mode and its instance inference (PyTorch).
+
+Counterpart of `mal_tpu.segment.mask2former` (reference
+`mask2former/maskformer_model.py:21-380`): the frozen instance segmenter of
+the MAL temporal hint (`manydepth/trainer.py:350-357`). The module tree has
+detectron2's names (`backbone`, `sem_seg_head.pixel_decoder`,
+`sem_seg_head.predictor`), so its state dict has the keys of the published
+checkpoints.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from mal_tpu_torch.device import resolve_device
+from mal_tpu_torch.ops.interp import resize_bilinear
+from mal_tpu_torch.segment.instances import Instances
+from mal_tpu_torch.segment.msdeform import MSDeformAttn
+from mal_tpu_torch.segment.pixel_decoder import MSDeformAttnPixelDecoder
+from mal_tpu_torch.segment.swin import CONFIGS, SwinTransformer, WindowAttention
+from mal_tpu_torch.segment.transformer_decoder import (MaskedTransformerDecoder,
+                                                       MultiheadAttention)
+
+Tensor = torch.Tensor
+
+# detectron2 COCO normalisation (cfg MODEL.PIXEL_MEAN / PIXEL_STD), applied
+# to [0, 255] inputs
+_PIXEL_MEAN = (123.675, 116.28, 103.53)
+_PIXEL_STD = (58.395, 57.12, 57.375)
+
+
+def preprocess_images(images: Tensor) -> Tensor:
+    """The reference's segmenter preprocessing of (B, H, W, 3) frames in
+    [0, 1]: it feeds Mask2Former **BGR** frames (`manydepth/dyn_utils.py:
+    176-178`) that detectron2 then normalises with RGB-ordered means
+    (`maskformer_model.py:193-195`). The mismatch is the released models'
+    behaviour and is kept."""
+    images = images.flip(-1)
+    mean = torch.tensor(_PIXEL_MEAN, device=images.device)
+    std = torch.tensor(_PIXEL_STD, device=images.device)
+    return (images * 255.0 - mean) / std
+
+
+def _lecun_normal_(w: Tensor, fan_in: int, generator: torch.Generator):
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """flax's initialisers as `mal_tpu`'s segmenter uses them: Dense and
+    Conv kernels lecun-normal, biases 0, norms 1 / 0; the relative-position
+    tables truncated normal with stddev 0.02; the level and query
+    embeddings standard normal; the deformable attention's offset and
+    weight kernels 0 (`msdeform.py:157-161`)."""
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            _lecun_normal_(m.weight, m.weight[0].numel(), generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, MultiheadAttention):
+            C = m.in_proj_weight.shape[1]
+            for w in m.in_proj_weight.chunk(3):
+                _lecun_normal_(w, C, generator)
+            nn.init.zeros_(m.in_proj_bias)
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, generator=generator)
+        elif isinstance(m, WindowAttention):
+            nn.init.trunc_normal_(m.relative_position_bias_table, 0.0, 0.02,
+                                  -0.04, 0.04, generator=generator)
+    for m in model.modules():
+        if isinstance(m, MSDeformAttn):
+            nn.init.zeros_(m.sampling_offsets.weight)
+            nn.init.zeros_(m.attention_weights.weight)
+    nn.init.normal_(model.sem_seg_head.pixel_decoder.transformer.level_embed,
+                    generator=generator)
+
+
+class Mask2Former(nn.Module):
+    """The segmenter on `device` (default: the GPU, raising if there is
+    none), with flax-style random weights from `generator` (default: seed
+    0), drawn on the CPU and then moved; `load_jax_mask2former` or a
+    detectron2 state dict replaces them."""
+
+    def __init__(self, num_classes: int = 80, swin_size: str = "large",
+                 num_queries: int = 100,
+                 device: str | torch.device | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.swin_size = swin_size
+        embed = CONFIGS[swin_size][0]
+        self.backbone = SwinTransformer(swin_size)
+        self.sem_seg_head = nn.Module()
+        self.sem_seg_head.pixel_decoder = MSDeformAttnPixelDecoder(
+            {f"res{s + 2}": embed * 2 ** s for s in range(4)})
+        self.sem_seg_head.predictor = MaskedTransformerDecoder(
+            num_classes=num_classes, num_queries=num_queries)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            init_like_flax(self, generator)
+        self.eval()
+        self.requires_grad_(False)   # frozen
+        self.to(device)
+
+    def forward(self, images: Tensor) -> tuple[Tensor, Tensor]:
+        """images (B, H, W, 3) in [0, 1]. Returns (pred_logits (B, Q, K+1),
+        pred_masks (B, Q, H/4, W/4))."""
+        feats = self.backbone(preprocess_images(images))
+        mask_features, multi_scale = self.sem_seg_head.pixel_decoder(feats)
+        return self.sem_seg_head.predictor(multi_scale, mask_features)
+
+
+def instance_inference(pred_logits: Tensor, pred_masks: Tensor, out_h: int,
+                       out_w: int, max_instances: int) -> Instances:
+    """Top-k padded instances (`maskformer_model.py:344-380`): class-softmax
+    scores without the background, a fixed top-`max_instances` over
+    (queries x classes), mask logits upsampled and thresholded at 0, and
+    the score times the mean in-mask probability."""
+    B, Q, K1 = pred_logits.shape
+    K = K1 - 1
+    scores = pred_logits.softmax(dim=-1)[..., :K].reshape(B, Q * K)
+    top_scores, top_idx = scores.topk(max_instances, dim=1)
+    top_q = top_idx // K
+    top_class = top_idx % K
+    h, w = pred_masks.shape[-2:]
+    masks = pred_masks.gather(1, top_q[:, :, None, None].expand(-1, -1, h, w))
+    masks_up = resize_bilinear(masks, out_h, out_w)
+    binary = (masks_up > 0.0).to(torch.float32)
+    prob = masks_up.sigmoid()
+    mask_score = ((prob * binary).sum(dim=(2, 3))
+                  / (binary.sum(dim=(2, 3)) + 1e-6))
+    final = top_scores * mask_score
+    return Instances(masks=binary, classes=top_class.to(torch.int32),
+                     scores=final, valid=torch.ones_like(final, dtype=torch.bool))
+
+
+def make_seg_fn(model: Mask2Former, max_instances: int):
+    """`seg_fn(images (B, H, W, 3)) -> Instances`, the temporal hint's
+    segmenter: the frozen model under `torch.no_grad()` on detached frames
+    (the reference runs Mask2Former under no_grad, `dyn_utils.py:185-186`)."""
+
+    def seg_fn(images: Tensor) -> Instances:
+        H, W = images.shape[1:3]
+        with torch.no_grad():
+            logits, masks = model(images.detach())
+            return instance_inference(logits, masks, H, W, max_instances)
+
+    return seg_fn

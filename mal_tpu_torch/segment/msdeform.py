@@ -1,0 +1,52 @@
+"""Multi-scale deformable attention (PyTorch).
+
+Counterpart of `mal_tpu.segment.msdeform.MSDeformAttn`
+(`ops/modules/ms_deform_attn.py` in the reference): sampling locations are
+normalised to [0, 1] per level, sampled with zeros padding and
+align_corners=False, and weighted by softmax attention weights over
+(levels x points). The sampling core is kernel K5
+(`ops/cuda/deform_sample.py:ms_deform_attn_core`) on CUDA tensors and its
+plain per-level version on CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
+
+Tensor = torch.Tensor
+
+# the reference pixel decoder's: width, levels, heads, points per level
+D_MODEL, LEVELS, HEADS, POINTS = 256, 3, 8, 4
+
+
+class MSDeformAttn(nn.Module):
+    def __init__(self):
+        super().__init__()
+        samples = HEADS * LEVELS * POINTS
+        self.sampling_offsets = nn.Linear(D_MODEL, samples * 2)
+        self.attention_weights = nn.Linear(D_MODEL, samples)
+        self.value_proj = nn.Linear(D_MODEL, D_MODEL)
+        self.output_proj = nn.Linear(D_MODEL, D_MODEL)
+
+    def forward(self, query: Tensor, reference_points: Tensor,
+                value_flat: Tensor, spatial_shapes: list[tuple[int, int]]
+                ) -> Tensor:
+        """query (B, Lq, C); reference_points (B, Lq, L, 2) as (x, y) in
+        [0, 1]; value_flat (B, sum(HW), C)."""
+        B, Lq, C = query.shape
+        H_, L, P = HEADS, LEVELS, POINTS
+        value = self.value_proj(value_flat).reshape(B, -1, H_, C // H_)
+        offsets = self.sampling_offsets(query).reshape(B, Lq, H_, L, P, 2)
+        attn = self.attention_weights(query).reshape(B, Lq, H_, L * P)
+        attn = attn.softmax(dim=-1).reshape(B, Lq, H_, L, P)
+        # offsets are in pixels of each level: normalise by its (w, h)
+        sizes = torch.tensor([[w, h] for h, w in spatial_shapes],
+                             dtype=torch.float32, device=query.device)
+        locs = (reference_points[:, :, None, :, None, :]
+                + offsets / sizes[None, None, None, :, None, :])
+        out = ms_deform_attn_core(value, spatial_shapes, locs.contiguous(),
+                                  attn.contiguous())
+        return self.output_proj(out)

@@ -1,10 +1,11 @@
 """The MAL training step (PyTorch).
 
-Counterpart of `mal_tpu.train.step` for the non-temporal, non-pareto
-configurations: the teacher and student forward passes, the photometric
-warps, the MAL distillation, the loss balancer, the Adam update (with the
-BN statistics updated by the forward) and the adaptive depth-bin EMA
-(`manydepth/trainer.py:449-644`).
+Counterpart of `mal_tpu.train.step` for the non-pareto configurations:
+the teacher and student forward passes, the photometric warps, the MAL
+temporal hint (frames synthesized from the frozen segmenter's instances,
+`temporal` / `main_temporal`), the MAL distillation, the loss balancer, the
+Adam update (with the BN statistics updated by the forward) and the
+adaptive depth-bin EMA (`manydepth/trainer.py:449-644`).
 
 Random draws: the matching augmentation's uniform draw and the automask
 tie-break noise come from `generator`, or are passed in `draws` so that a
@@ -22,18 +23,18 @@ from mal_tpu_torch.config import Config
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.models.mal_model import MALModel, to_nchw
 from mal_tpu_torch.ops.interp import grid_sample
+from mal_tpu_torch.temporal import image_synthesis
 from mal_tpu_torch.train.lr_schedule import warmup_step_schedule
 from mal_tpu_torch.train.state import TrainState, apply_gradients
 
 Tensor = torch.Tensor
 
 
-def check_supported(cfg: Config) -> None:
-    """Raise for the options whose code paths are not ported yet."""
+def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
+    """Raise for the options whose code paths are not ported yet, and for
+    the temporal hint without a segmenter."""
     unported = {
         "method != 'manydepth'": cfg.method != "manydepth",
-        "temporal": cfg.temporal,
-        "main_temporal": cfg.main_temporal,
         "pareto": cfg.distil and cfg.pareto,
         "compute_dtype='bfloat16'": cfg.compute_dtype != "float32",
         "remat": cfg.remat,
@@ -44,6 +45,17 @@ def check_supported(cfg: Config) -> None:
     for name, on in unported.items():
         if on:
             raise NotImplementedError(f"{name}: not yet ported")
+    if cfg.seg_cache_root is not None:
+        raise NotImplementedError(
+            "seg_cache_root: the precomputed instance cache waits for the "
+            "port of the host loop and its I/O")
+    if cfg.seg_fused_swin:
+        raise NotImplementedError(
+            "seg_fused_swin=True: the fused Swin blocks need kernels K2 / K3 "
+            "(swin_attn_fused, swin_mlp_fused), which wait for the bf16 "
+            "fast-mode slice")
+    if (cfg.temporal or cfg.main_temporal) and seg_fn is None:
+        raise ValueError("cfg.temporal requires a segmentation seg_fn")
     if cfg.learn_ens:
         # as mal_tpu: the reference's ens_disp producer is missing from its
         # snapshot (`manydepth/loss_utils.py:240` reads a key no module writes)
@@ -70,7 +82,8 @@ def _all_photometric_warps(cfg: Config, batch: dict, outputs: dict,
     return out
 
 
-def make_loss_fn(cfg: Config, model: MALModel) -> Callable:
+def make_loss_fn(cfg: Config, model: MALModel,
+                 seg_fn: Callable | None = None) -> Callable:
     """`loss_fn(batch, min_d, max_d, balancer, epoch, aug_draw=None,
     noise=None, generator=None) -> (total, aux)`: the loss assembly of
     `Trainer.process_batch` (`manydepth/trainer.py:555-644`). Running it
@@ -78,13 +91,28 @@ def make_loss_fn(cfg: Config, model: MALModel) -> Callable:
 
     aug_draw: (B,) uniform draw of the matching augmentation; noise:
     (B, 1, H, W) standard-normal automask tie-break draw. Each is drawn
-    from `generator` when not given.
+    from `generator` when not given. `seg_fn(images (B, H, W, 3)) ->
+    Instances` is the frozen segmenter of the temporal hint, required when
+    `temporal` or `main_temporal` is on (`segment/mask2former.py:
+    make_seg_fn`, or a test's stand-in).
     """
-    check_supported(cfg)
+    check_supported(cfg, seg_fn)
     train_teacher = not cfg.freeze_teacher_and_pose
     train_pose = train_teacher and not cfg.freeze_pose
     reproj_fn = (losses.l1_reprojection_loss if cfg.no_ssim
                  else losses.reprojection_loss)
+
+    def temporal_syn(warped: list[Tensor], inst_cur):
+        """Synthesized frames from one pair of warped frames
+        (`dyn_utils.py:121-170`); the segmenter sees them detached, and
+        `inst_cur` is shared between the teacher's and the student's call.
+        Returns the two frames and the (B,) items with a matched pair."""
+        inst_last, inst_next = (seg_fn(w.detach().permute(0, 2, 3, 1))
+                                for w in warped)
+        syn_l, syn_n, has = image_synthesis(warped[0], warped[1], inst_cur,
+                                            inst_last, inst_next,
+                                            cfg.ins_threshold)
+        return [syn_l, syn_n], has
 
     def loss_fn(batch: dict, min_d: Tensor, max_d: Tensor,
                 balancer: losses.LossBalancerState, epoch: float,
@@ -93,6 +121,9 @@ def make_loss_fn(cfg: Config, model: MALModel) -> Callable:
         outputs = model(batch, min_d, max_d, aug_draw=aug_draw,
                         generator=generator, train=True,
                         train_teacher=train_teacher, train_pose=train_pose)
+        # the current frame is segmented once, for both syntheses
+        inst_cur = (seg_fn(batch["color"]["0"])
+                    if cfg.temporal or cfg.main_temporal else None)
         batch = to_nchw(batch)
         color0 = batch["color"]["0"]
         identity = [batch["color"][str(f)] for f in cfg.frame_ids[1:]]
@@ -116,8 +147,13 @@ def make_loss_fn(cfg: Config, model: MALModel) -> Callable:
         if noise is None and not cfg.disable_automasking:
             noise = torch.randn(mono_depth.shape, generator=generator,
                                 device=mono_depth.device)
+        syn_items = torch.zeros((), device=color0.device)
+        mono_syn = []
+        if cfg.temporal:
+            mono_syn, has = temporal_syn(warps[0], inst_cur)
+            syn_items = syn_items + has.sum()
         mono_out = losses.mono_losses(
-            noise, mono_disp, color0, warps[0], identity,
+            noise, mono_disp, color0, warps[0], identity, syn=mono_syn,
             smoothness_weight=cfg.disparity_smoothness, reproj_fn=reproj_fn,
             avg_reprojection=cfg.avg_reprojection,
             disable_automasking=cfg.disable_automasking)
@@ -134,9 +170,14 @@ def make_loss_fn(cfg: Config, model: MALModel) -> Callable:
             with torch.no_grad():
                 ens_reproj = losses.min_reprojection(warps[2], color0,
                                                      reproj_fn=reproj_fn)
+        multi_syn = []
+        if cfg.main_temporal:
+            multi_syn, has = temporal_syn(warps[1], inst_cur)
+            syn_items = syn_items + has.sum()
         multi_out = losses.multi_losses(
             disp, color0, warps[1], multi_depth, mono_depth_sg, cmask,
             outputs["augmentation_mask"], mono_out.min_reproj.detach(),
+            syn=multi_syn,
             ensemble_min_reproj=ens_reproj,
             dual_distil_mono_depth=mono_depth if cfg.dual_distil else None,
             smoothness_weight=cfg.disparity_smoothness, reproj_fn=reproj_fn,
@@ -177,6 +218,9 @@ def make_loss_fn(cfg: Config, model: MALModel) -> Callable:
                 "distil_loss": multi_out.distil_loss.detach(),
                 "w_ori": new_balancer.w[0],
                 "w_distil": new_balancer.w[1],
+                # items whose synthesis had a matched instance pair, summed
+                # over the teacher's and the student's synthesis
+                "syn_items": syn_items,
             },
         }
         return total, aux
@@ -184,11 +228,11 @@ def make_loss_fn(cfg: Config, model: MALModel) -> Callable:
     return loss_fn
 
 
-def make_train_step(cfg: Config, device: str | torch.device | None = None
-                    ) -> Callable:
+def make_train_step(cfg: Config, device: str | torch.device | None = None,
+                    seg_fn: Callable | None = None) -> Callable:
     """`train_step(state, batch, epoch=0.0, generator=None, draws=None)
     -> (state, metrics)` on `device` (default: the GPU, raising if there
-    is none).
+    is none). `seg_fn` as in `make_loss_fn`.
 
     `draws` may hold "matching_aug" (B,) and "automask_noise" (B, 1, H, W)
     to inject the step's random draws. The learning rate of step n is the
@@ -196,7 +240,7 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None
     step 0 trains at `init_lr`).
     """
     device = resolve_device(device)
-    check_supported(cfg)
+    check_supported(cfg, seg_fn)
     train_teacher = not cfg.freeze_teacher_and_pose
     schedule = warmup_step_schedule(cfg.init_lr, cfg.learning_rate,
                                     cfg.warmup_steps, cfg.decay_steps)
@@ -209,7 +253,7 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None
                              f"runs on {device}")
         draws = draws or {}
         model = state.model
-        loss_fn = make_loss_fn(cfg, model)
+        loss_fn = make_loss_fn(cfg, model, seg_fn)
 
         model.zero_grad(set_to_none=True)
         total, aux = loss_fn(batch, state.bins.min_depth, state.bins.max_depth,

@@ -13,6 +13,9 @@ import torch
 
 from mal_tpu_torch.ops.cost_volume import compute_depth_bins, plane_sweep_terms
 from mal_tpu_torch.ops.cuda import cost_volume_kernel as tk
+from mal_tpu_torch.ops.cuda import deform_sample as k5
+from mal_tpu_torch.ops.cuda import window_attention as k4
+from mal_tpu_torch.segment.swin import shift_mask
 
 pytestmark = pytest.mark.gpu
 
@@ -69,3 +72,73 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                              lookup[..., :6].contiguous(), M, t, bins)
     with pytest.raises(ValueError, match="is on"):
         tk.plane_sweep_diffs(cur, lookup.cpu(), M, t, bins)
+
+
+# (windows per image, images, window size, heads, shifted): Swin-T's
+# window, Swin-L's with a shift mask, and a ragged thread count
+@pytest.mark.parametrize("nm,images,ws,heads,shifted", [
+    (1, 5, 7, 3, False), (4, 3, 12, 6, True), (4, 2, 5, 2, True)])
+def test_k4_matches_plain_version(cuda, nm, images, ws, heads, shifted):
+    rng = np.random.RandomState(ws)
+    N = ws * ws
+    qkv = torch.from_numpy(rng.randn(nm * images, N, 3 * heads * 32)
+                           .astype(np.float32)).to(cuda)
+    table = torch.from_numpy((0.1 * rng.randn((2 * ws - 1) ** 2, heads))
+                             .astype(np.float32)).to(cuda)
+    mask = shift_mask(2 * ws, 2 * ws, ws, ws // 2, cuda) if shifted else None
+    before = k4.window_attention.launches
+    out = k4.window_attention(qkv, table, mask, heads)
+    assert k4.window_attention.launches == before + 1
+    plain = k4.window_attention_reference(qkv, table, mask, heads)
+    torch.cuda.synchronize()
+    # outputs of O(1): an online softmax and 32-wide sums in another order
+    torch.testing.assert_close(out, plain, rtol=0, atol=2e-5)
+
+
+def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    qkv = torch.zeros(4, 49, 3 * 64, device=cuda)
+    table = torch.zeros(169, 2, device=cuda)
+    with pytest.raises(ValueError, match="heads"):
+        k4.window_attention(qkv, table, None, 3)
+    with pytest.raises(ValueError, match="square"):
+        k4.window_attention(qkv[:, :48].contiguous(), table, None, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.window_attention(qkv.transpose(0, 1), table, None, 2)
+
+
+# (B, Lq, heads, ch, levels, points): a small set with 4 levels and 8-wide
+# channels, and the pixel decoder's 3 levels x 4 points at 32 channels
+@pytest.mark.parametrize("B,Lq,heads,ch,shapes,P", [
+    (2, 37, 4, 8, [(6, 10), (3, 5), (2, 3), (1, 2)], 2),
+    (2, 600, 8, 32, [(6, 20), (12, 40), (24, 80)], 4)])
+def test_k5_matches_plain_version(cuda, B, Lq, heads, ch, shapes, P):
+    rng = np.random.RandomState(Lq)
+    L, S = len(shapes), sum(h * w for h, w in shapes)
+    value = torch.from_numpy(rng.randn(B, S, heads, ch).astype(np.float32))
+    locs = torch.from_numpy(rng.uniform(-0.2, 1.2, (B, Lq, heads, L, P, 2))
+                            .astype(np.float32))
+    aw = torch.from_numpy(rng.uniform(0, 1, (B, Lq, heads, L, P))
+                          .astype(np.float32))
+    args = [value.to(cuda), shapes, locs.to(cuda), aw.to(cuda)]
+    before = k5.ms_deform_attn_core.launches
+    out = k5.ms_deform_attn_core(*args)
+    assert k5.ms_deform_attn_core.launches == before + 1
+    plain = k5.ms_deform_attn_core_per_level(*args)
+    torch.cuda.synchronize()
+    # sample coordinates rounded in another order (x * w - 0.5 against
+    # grid_sample's ((2x - 1 + 1) * w - 1) / 2) move bilinear weights by
+    # ~1e-7 relative of the coordinate, on values of O(1) summed over up
+    # to 32 samples
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-4)
+
+
+def test_k5_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    value = torch.zeros(1, 6, 2, 8, device=cuda)
+    locs = torch.zeros(1, 3, 2, 1, 2, 2, device=cuda)
+    aw = torch.zeros(1, 3, 2, 1, 2, device=cuda)
+    with pytest.raises(ValueError, match="do not sum"):
+        k5.ms_deform_attn_core(value, [(2, 2)], locs, aw)
+    with pytest.raises(TypeError):
+        k5.ms_deform_attn_core(value.double(), [(2, 3)], locs, aw)
+    with pytest.raises(ValueError, match="is on"):
+        k5.ms_deform_attn_core(value, [(2, 3)], locs.cpu(), aw)

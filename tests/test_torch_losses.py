@@ -71,19 +71,33 @@ def _mono_inputs():
     return disp, color, warped, identity
 
 
+def _syn_frames(seed):
+    """Two temporal-hint frames, made as the warped frames are, so that
+    they win some pixels of the min reprojection."""
+    color = _img(10) if seed < 40 else _img(22)
+    return [np.clip(color + 0.1 * _img(seed + k) - 0.05, 0, 1)
+            for k in range(2)]
+
+
 @pytest.mark.parametrize("variant", ["default", "avg_reprojection",
-                                     "disable_automasking"])
+                                     "disable_automasking", "syn"])
 def test_mono_losses(variant):
     disp, color, warped, identity = _mono_inputs()
     rng = jax.random.PRNGKey(3)
     noise = np.asarray(jax.random.normal(rng, (B, H, W, 1), jnp.float32))
-    kw = {variant: True} if variant != "default" else {}
+    kw = {variant: True} if variant not in ("default", "syn") else {}
+    syn = _syn_frames(30) if variant == "syn" else []
     want = jl.mono_losses(rng, _j(disp), _j(color), [_j(w) for w in warped],
-                          [_j(i) for i in identity], **kw)
+                          [_j(i) for i in identity],
+                          syn=[_j(s) for s in syn], **kw)
     got = tl.mono_losses(_t(noise), _t(disp), _t(color),
-                         [_t(w) for w in warped], [_t(i) for i in identity], **kw)
+                         [_t(w) for w in warped], [_t(i) for i in identity],
+                         syn=[_t(s) for s in syn], **kw)
+    # SSIM's variance terms cancel: one pixel of the syn frames' SSIM map
+    # differs by 2.2e-6 between the packages, above TOL's atol
+    tol = dict(rtol=1e-5, atol=5e-6) if syn else {}
     for g, w in zip(got, want, strict=True):
-        _close(g, w)
+        _close(g, w, **tol)
 
 
 def _multi_inputs():
@@ -100,21 +114,25 @@ def _multi_inputs():
     return disp, color, warped, multi_depth, mono_depth, cmask, aug, mono_min, ens_min
 
 
-@pytest.mark.parametrize("variant", ["ensemble", "no_ensemble", "dual_distil"])
+@pytest.mark.parametrize("variant", ["ensemble", "no_ensemble", "dual_distil",
+                                     "syn"])
 def test_multi_losses(variant):
     (disp, color, warped, multi_depth, mono_depth, cmask, aug, mono_min,
      ens_min) = _multi_inputs()
-    ens = ens_min if variant == "ensemble" else None
+    ens = ens_min if variant in ("ensemble", "syn") else None
     dual = mono_depth * 1.5 if variant == "dual_distil" else None
+    syn = _syn_frames(50) if variant == "syn" else []
     want = jl.multi_losses(
         _j(disp), _j(color), [_j(w) for w in warped], _j(multi_depth),
         _j(mono_depth), _j(cmask), _j(aug), _j(mono_min),
+        syn=[_j(s) for s in syn],
         ensemble_min_reproj=None if ens is None else _j(ens),
         dual_distil_mono_depth=None if dual is None else _j(dual))
     got = tl.multi_losses(
         _t(disp), _t(color), [_t(w) for w in warped], _t(multi_depth),
         _t(mono_depth), torch.from_numpy(cmask), torch.from_numpy(aug),
-        _t(mono_min), ensemble_min_reproj=None if ens is None else _t(ens),
+        _t(mono_min), syn=[_t(s) for s in syn],
+        ensemble_min_reproj=None if ens is None else _t(ens),
         dual_distil_mono_depth=None if dual is None else _t(dual))
     for g, w in zip(got, want, strict=True):
         _close(g, w)

@@ -40,6 +40,26 @@ def test_grid_sample(padding_mode):
     np.testing.assert_allclose(_to_nhwc(got), np.asarray(want), atol=1e-5)
 
 
+def test_grid_sample_without_align_corners():
+    """Zeros padding with align_corners=False, as deformable attention
+    samples its levels."""
+    img = _image(seed=2)
+    grid = np.random.RandomState(3).uniform(
+        -1.3, 1.3, (2, 7, 9, 2)).astype(np.float32)
+    got = ti.grid_sample(torch.from_numpy(nchw(img)), torch.from_numpy(grid),
+                         "zeros", align_corners=False)
+    want = ji.grid_sample(jnp.asarray(img), jnp.asarray(grid), "zeros", False)
+    np.testing.assert_allclose(_to_nhwc(got), np.asarray(want), atol=1e-5)
+
+
+@pytest.mark.parametrize("size", [(12, 20), (5, 7), (30, 44), (6, 41)])
+def test_resize_bilinear(size):
+    img = _image(seed=4)
+    got = ti.resize_bilinear(torch.from_numpy(nchw(img)), *size)
+    want = ji.resize_bilinear(jnp.asarray(img), *size)
+    np.testing.assert_allclose(_to_nhwc(got), np.asarray(want), atol=1e-6)
+
+
 def test_grid_sample_rejects_unknown_padding():
     with pytest.raises(ValueError):
         ti.grid_sample(torch.zeros(1, 1, 2, 2), torch.zeros(1, 1, 1, 2),

@@ -264,12 +264,29 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"temporal": True}, {"main_temporal": True}, {"pareto": True},
+    {"temporal": True, "seg_cache_root": "cache"},
+    {"main_temporal": True, "seg_fused_swin": True}, {"pareto": True},
     {"compute_dtype": "bfloat16"}, {"method": "dynamicdepth"},
     {"learn_ens": True}, {"remat": True}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
-        make_train_step(torch_cfg(CFG).replace(**option), device="cpu")
+        make_train_step(torch_cfg(CFG).replace(**option), device="cpu",
+                        seg_fn=lambda images: None)
+
+
+@pytest.mark.parametrize("option,waits_for", [
+    ({"seg_cache_root": "cache"}, "host loop"),
+    ({"seg_fused_swin": True}, "K2 / K3")])
+def test_unported_segmenter_options_say_what_they_wait_for(option, waits_for):
+    cfg = torch_cfg(CFG).replace(temporal=True, **option)
+    with pytest.raises(NotImplementedError, match=waits_for):
+        make_train_step(cfg, device="cpu", seg_fn=lambda images: None)
+
+
+def test_temporal_needs_a_segmenter():
+    with pytest.raises(ValueError, match="seg_fn"):
+        make_train_step(torch_cfg(CFG).replace(main_temporal=True),
+                        device="cpu")
 
 
 def test_frozen_teacher_and_pose_stay_put():
