@@ -1,38 +1,45 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`mal_tpu_torch`) on one CUDA GPU and check it.
 
-    python3 chip_smoke.py [--steps N] [--profile]
+    python3 chip_smoke.py [--steps N] [--profile] [--kernels-only]
 
 Phases, each of which must pass or the script exits non-zero:
-1. the card (name and power limit from nvidia-smi) and the fp32 settings;
+1. the card (name and power limit from nvidia-smi);
 2. build every CUDA kernel of the port from `mal_tpu_torch/csrc`, one
    `nvcc` per source, all at once;
-3. each kernel against its plain PyTorch version at the shape the main path
-   gives it, with both times, its bound and, where one PyTorch call computes
+3. each kernel against its plain PyTorch version at shapes of the main
+   paths, with both times, its bound and, where one PyTorch call computes
    the same function, that call's time: K1 (`plane_sweep_diffs`, BF=12,
-   D=96, 48x160x64; max abs error and flipped border decisions), K4
-   (`window_attention`, Swin-L stage 0 at 192x640, batch 12: 672 windows,
-   6 heads, 144 tokens, shift mask of 56 windows) and K5
-   (`ms_deform_attn_core`, batch 12, 2520 queries, 8 heads of 32, levels
-   6x20 / 12x40 / 24x80, 4 points);
-4. small-input references: one training step and one `eval_forward` at
-   64x96 on the GPU against the same on the CPU (the plain PyTorch path),
-   and one temporal step at 64x96 with a Swin-T Mask2Former, GPU against
-   CPU (segmenter mask bits and loss);
+   D=96, 48x160x64), K2 (`swin_attn_fused`) and K3 (`swin_mlp_fused`) at
+   Swin-L stage 0 (shifted, 160 -> 168 padding, 56-window mask) and stage 3
+   (C = 1536) in bf16 and fp32, beside the port's unfused bf16 block, K4
+   (`window_attention`, stage 0), K5 (`ms_deform_attn_core`, batch 12, 2520
+   queries, 8 heads of 32, levels 6x20 / 12x40 / 24x80, 4 points) and K5b
+   (`deform_sample_fused`, the same work sample-major);
+4. small-input references, GPU against CPU (the plain PyTorch path): one
+   training step and one `eval_forward` at 64x96; one temporal step at
+   64x96 with a Swin-T Mask2Former; the same temporal step in fast mode;
 5. the path without the temporal hint: `create_train_state`, N training
    steps at `Config()` (192x640, batch 12, 96 depth bins, ResNet-18, fp32)
    on a seeded synthetic batch and one `eval_forward`;
-6. the main path of this slice, the temporal hint: `Config(temporal=True,
-   ins_threshold=0.0)` with the full-width Swin-L Mask2Former (seeded
-   random weights; the lowered threshold makes matching and synthesis work
-   on every item), N steps and one `eval_forward`, then one timed segmenter
-   forward.
-Phases 5 and 6 each set every kernel's launch count to 0 just before they
+6. the temporal hint in fp32: `Config(temporal=True, ins_threshold=0.0)`
+   with the full-width Swin-L Mask2Former (seeded random weights; the
+   lowered threshold makes matching and synthesis work on every item), N
+   steps and one `eval_forward`;
+7. this slice's main path, the fast mode: `Config(temporal=True,
+   ins_threshold=0.0, **TRAIN_FAST_SETTINGS)` with `Mask2Former(
+   bf16_backbone=True, fused_swin=True)`, N steps and one `eval_forward`,
+   then the segmenter forward timed fused bf16, unfused bf16 and fp32, and
+   the share of mask bits on which the fast segmenter leaves the fp32 one.
+Phases 5 to 7 each set every kernel's launch count to 0 just before they
 run and read the counts just after; each kernel must have launched exactly
-as often as its path calls it. The script then prints the `kernels` JSON
-line (launches from phase 6), the card's line, and as the last line
-`{"ok": true, "device": {...}}`. Without a CUDA device, or without the
+as often as its path calls it (phase 7: K2 = K3 = 72 per step, K4 = 0), and
+at least once on some path. K5b is exempt: nothing calls it, in `mal_tpu`
+either, and its phase is its launch. The script then prints the `kernels`
+JSON line (launches per path and in all), the card's line, and as the last
+line `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
 `mal_tpu_torch` package beside it, it exits non-zero and prints no result.
+`--kernels-only` stops after phase 3.
 """
 
 from __future__ import annotations
@@ -59,10 +66,35 @@ K4_ATOL = 2e-5
 # version as grid_sample's ((2x - 1 + 1) * w - 1) / 2; the ~1e-7 relative
 # difference moves bilinear weights on values of O(1), summed over 12 samples
 K5_ATOL = 1e-4
+# K2 / K3 in fp32: outputs of O(1) from sums of 192 to 6144 products, taken
+# in another order than the plain version's cuBLAS products; erff against
+# torch.erf
+K23_F32_ATOL = 2e-4
+# K2 / K3 in bf16: kernel and plain version round at the same places, so
+# they differ where an fp32 sum in another order crosses a bf16 rounding
+# boundary: an output moves by an ulp or two (2^-8 of its binade each), a
+# few more after the 6144-term fc2 sums of stage 3
+K23_BF16_RTOL = 2 ** -6
+K23_BF16_ATOL = 2 ** -6
+# ... and on average the two must agree far better than bf16 agrees with
+# fp32 (a mean error of ~1e-3 at these shapes)
+K23_BF16_MEAN = 3e-4
+# K5b: as K5, three samples instead of twelve
+K5B_ATOL = 1e-4
 # the small temporal reference: GPU against CPU
 SEG_MAX_BIT_FLIPS = 1e-3   # share of segmenter mask bits that may differ
 TEMPORAL_LOSS_RTOL = 1e-3
-SOURCES = ["plane_sweep", "window_attention", "deform_sample"]
+# the same in fast mode: cuDNN's and the CPU's bf16 convolutions, and K2 / K3
+# against their plain versions, sum in other orders, and every bf16 rounding
+# that flips moves what follows by 2^-8 of its value
+FAST_SEG_MAX_BIT_FLIPS = 2e-2
+FAST_LOSS_RTOL = 2e-2
+# the fast segmenter against the fp32 one on the card, with random weights
+# (whose mask logits sit near 0 far more often than trained ones): a loose
+# gate against a broken path, not a measure of the mode
+FAST_VS_FP32_MAX_BIT_FLIPS = 0.25
+PEAK_BF16_FLOPS = 989e12   # H100 SXM tensor cores, dense
+SOURCES = ["plane_sweep", "window_attention", "deform_sample", "swin_block"]
 
 
 class SmokeFailure(RuntimeError):
@@ -341,20 +373,294 @@ def k5_phase() -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
 
+# Swin-L at 192x640 with window 12: stage -> (padded map, real map, C, heads,
+# whether odd blocks shift). A map one window high is not shifted.
+SWIN_L_STAGES = {0: ((48, 168), (48, 160), 192, 6, True),
+                 3: ((12, 24), (6, 20), 1536, 48, False)}
+SWIN_WINDOW = 12
 
-def small_temporal_reference_phase() -> None:
-    """One temporal step at 64x96 with a Swin-T Mask2Former: GPU against
-    CPU, from the same weights, batch and draws."""
+
+def _bound(n_bytes: float, n_ops: float, peak_flops: float) -> dict:
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = n_ops / peak_flops * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "text": f"bound {max(bytes_ms, ops_ms):.4f} ms ({n_bytes / 1e6:.1f}"
+                    f" MB -> {bytes_ms:.4f} ms, {n_ops / 1e9:.2f} GFLOP -> "
+                    f"{ops_ms:.4f} ms)"}
+
+
+def _swin_block(stage: int):
+    """A shifted-or-not Swin-L block of `stage` on the card in its unfused
+    bf16 form, with seeded random parameters that K2 / K3 are given too."""
     import torch
 
-    from mal_tpu_torch.config import Config
+    from mal_tpu_torch.segment.swin import SwinBlock
+
+    _, _, C, heads, shifted = SWIN_L_STAGES[stage]
+    block = SwinBlock(C, heads, SWIN_WINDOW, shifted,
+                      compute_dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(20 + stage)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            r = torch.randn(p.shape, generator=g)
+            if p.dim() == 2 and name.endswith("weight"):
+                p.copy_(r / p.shape[1] ** 0.5)          # Linear kernels
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * r)                  # norm scales
+            else:
+                p.copy_(0.1 * r)                        # biases, the table
+    return block.cuda().eval().requires_grad_(False)
+
+
+def _swin_agreement(what: str, out, plain, mode: str) -> float:
+    """Hold a K2 / K3 output against its plain version; returns max abs err."""
+    import torch
+
+    check(torch.isfinite(out).all().item(), f"{what} output not finite")
+    diff = (out.float() - plain.float()).abs()
+    err, mean = diff.max().item(), diff.mean().item()
+    scale = plain.float().abs().max().item()
+    if mode == "fp32":
+        print(f"{what}: max_abs_err={err:.3e} (atol {K23_F32_ATOL}), "
+              f"relative to the largest output {err / scale:.3e}")
+        check(err <= K23_F32_ATOL, f"{what} disagrees with its plain version")
+    else:
+        worst = (diff / (K23_BF16_ATOL + K23_BF16_RTOL
+                         * plain.float().abs())).max().item()
+        print(f"{what}: max_abs_err={err:.3e}, relative to the largest output "
+              f"{err / scale:.3e}, {worst:.2f} of the tolerance (atol "
+              f"{K23_BF16_ATOL} + rtol {K23_BF16_RTOL}); mean_abs_err="
+              f"{mean:.3e} (max {K23_BF16_MEAN})")
+        check(worst <= 1.0, f"{what} disagrees with its plain version")
+        check(mean <= K23_BF16_MEAN, f"{what}: mean error {mean}")
+    return err
+
+
+def _swin_modes():
+    import torch
+
+    return (("bf16", torch.bfloat16, PEAK_BF16_FLOPS),
+            ("fp32", torch.float32, PEAK_FP32_FLOPS))
+
+
+def k2_phase() -> dict:
+    """K2 at the two ends of Swin-L: stage 0 (shifted, the 56-window mask,
+    160 -> 168 padding) and stage 3 (C = 1536, unshifted, 6x20 -> 12x24),
+    in bf16 (stream and compute) and in fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    from mal_tpu_torch.ops.cuda.swin_block import (swin_attn_fused,
+                                                   swin_attn_reference)
+    from mal_tpu_torch.segment.swin import (shift_mask, window_partition,
+                                            window_reverse)
+
+    B, ws = 12, SWIN_WINDOW
+    N = ws * ws
+    shapes = []
+    for stage, ((Hp, Wp), (H, W), C, heads, shifted) in SWIN_L_STAGES.items():
+        block = _swin_block(stage)
+        g = torch.Generator(device="cuda").manual_seed(6 + stage)
+        x = torch.randn((B, H, W, C), generator=g, device="cuda")
+        xr = F.pad(x, (0, 0, 0, Wp - W, 0, Hp - H))
+        valid = F.pad(torch.ones((H, W), device="cuda"), (0, Wp - W, 0, Hp - H))
+        mask = None
+        if shifted:
+            xr = torch.roll(xr, (-ws // 2, -ws // 2), dims=(1, 2))
+            valid = torch.roll(valid, (-ws // 2, -ws // 2), dims=(0, 1))
+            mask = shift_mask(Hp, Wp, ws, ws // 2, "cuda")
+        a = block.attn
+        params = (block.norm1.weight, block.norm1.bias, a.qkv.weight,
+                  a.qkv.bias, a.relative_position_bias_table, mask,
+                  a.proj.weight, a.proj.bias)
+        M, nW = B * Hp * Wp, B * Hp * Wp // N
+        for mode, dt, peak in _swin_modes():
+            xs = xr.to(dt).contiguous()
+
+            def call(fn):
+                return fn(xs, valid, *params, window_size=ws, num_heads=heads,
+                          compute_dtype=dt)
+
+            out = call(swin_attn_fused)
+            torch.cuda.synchronize()
+            plain = call(swin_attn_reference)
+            what = (f"K2 swin_attn_fused stage {stage} {mode} at {B}x{Hp}x{Wp}"
+                    f"x{C}, {heads} heads, {nW} windows"
+                    f"{', shifted' if shifted else ''}")
+            err = _swin_agreement(what, out, plain, mode)
+            del plain
+            ms = cuda_time_ms(lambda: call(swin_attn_fused), 10)
+            plain_ms = cuda_time_ms(lambda: call(swin_attn_reference), 2, 1)
+            # least bytes: the stream read and written once, the parameters,
+            # valid, table and mask once
+            n_bytes = (2 * xs.numel() * xs.element_size() + 4 * sum(
+                t.numel() for t in (valid, *params) if t is not None))
+            # operations: the qkv and proj products, q k^T and p v per window
+            # and head, ~5 per score for the softmax
+            n_ops = (2 * M * C * 4 * C
+                     + nW * heads * (4 * N * N * 32 + 5 * N * N))
+            bound = _bound(n_bytes, n_ops, peak)
+            row = {"stage": stage, "mode": mode, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                   "bound_by": bound["bound_by"], "unfused_bf16_ms": None}
+            text = f"K2 stage {stage} {mode}: {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if mode == "bf16":
+                # the same function from the port's unfused bf16 pieces:
+                # cuBLAS Linears in bf16 around K4
+                def unfused():
+                    y = block.norm1(xs.float()) * valid[None, :, :, None]
+                    wins = block.attn(window_partition(y, ws), mask)
+                    return window_reverse(wins, ws, Hp, Wp)
+
+                row["unfused_bf16_ms"] = cuda_time_ms(unfused, 10)
+                gap = (unfused() - out.float()).abs().max().item()
+                text += (f", unfused bf16 (cuBLAS + K4) "
+                         f"{row['unfused_bf16_ms']:.4f} ms (max diff {gap:.2e})")
+            print(f"{text}; {bound['text']}")
+            shapes.append(row)
+    main = shapes[0]    # stage 0 in bf16: the fast path's first block
+    return {"name": "swin_attn_fused", "route": "cuda",
+            "source": "mal_tpu_torch/csrc/swin_block.cu",
+            "replaces": "mal_tpu/ops/pallas/swin_block.py:170",
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "unfused_bf16_ms": main["unfused_bf16_ms"],
+            "shapes": shapes}
+
+
+def k3_phase() -> dict:
+    """K3 at stage 0 (92,160 tokens of 192) and stage 3 (1,440 tokens of
+    1536) of Swin-L, in bf16 and in fp32."""
+    import torch
+
+    from mal_tpu_torch.ops.cuda.swin_block import (swin_mlp_fused,
+                                                   swin_mlp_reference)
+
+    B = 12
+    shapes = []
+    for stage, (_, (H, W), C, _, _) in SWIN_L_STAGES.items():
+        block = _swin_block(stage)
+        M = B * H * W
+        g = torch.Generator(device="cuda").manual_seed(8 + stage)
+        x = torch.randn((M, C), generator=g, device="cuda")
+        m = block.mlp
+        params = (block.norm2.weight, block.norm2.bias, m.fc1.weight,
+                  m.fc1.bias, m.fc2.weight, m.fc2.bias)
+        for mode, dt, peak in _swin_modes():
+            xs = x.to(dt)
+
+            def call(fn):
+                return fn(xs, *params, compute_dtype=dt)
+
+            out = call(swin_mlp_fused)
+            torch.cuda.synchronize()
+            plain = call(swin_mlp_reference)
+            err = _swin_agreement(f"K3 swin_mlp_fused stage {stage} {mode} at "
+                                  f"{M}x{C}, hidden {4 * C}", out, plain, mode)
+            del plain
+            ms = cuda_time_ms(lambda: call(swin_mlp_fused), 10)
+            plain_ms = cuda_time_ms(lambda: call(swin_mlp_reference), 2, 1)
+            n_bytes = (2 * xs.numel() * xs.element_size()
+                       + 4 * sum(t.numel() for t in params))
+            n_ops = 2 * M * C * 4 * C * 2 + 10 * M * 4 * C   # products, GELU
+            bound = _bound(n_bytes, n_ops, peak)
+            row = {"stage": stage, "mode": mode, "max_abs_err": err, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                   "bound_by": bound["bound_by"], "unfused_bf16_ms": None}
+            text = f"K3 stage {stage} {mode}: {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if mode == "bf16":
+                def unfused():
+                    xf = xs.float()
+                    return xf + block.mlp(block.norm2(xf))
+
+                row["unfused_bf16_ms"] = cuda_time_ms(unfused, 10)
+                gap = (unfused() - out.float()).abs().max().item()
+                text += (f", unfused bf16 (cuBLAS) "
+                         f"{row['unfused_bf16_ms']:.4f} ms (max diff {gap:.2e})")
+            print(f"{text}; {bound['text']}")
+            shapes.append(row)
+    main = shapes[0]
+    return {"name": "swin_mlp_fused", "route": "cuda",
+            "source": "mal_tpu_torch/csrc/swin_block.cu",
+            "replaces": "mal_tpu/ops/pallas/swin_block.py:364",
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "unfused_bf16_ms": main["unfused_bf16_ms"],
+            "shapes": shapes}
+
+
+def k5b_phase() -> dict:
+    """K5b at the pixel decoder's shapes in the sample-major layout: 96
+    (batch x head) groups of 32 channels, 2520 queries x 4 points = 10,080
+    samples a group in 5 tiles of 2048, the tail padded with aw = 0."""
+    import torch
+
+    from mal_tpu_torch.ops.cuda.deform_sample import (
+        deform_sample_fused, deform_sample_fused_reference)
+
+    G, ch, T, S, real = 96, 32, 5, 2048, 10080
+    shapes = ((6, 20), (12, 40), (24, 80))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    vms = [torch.randn((G, h * ch, w), generator=g, device="cuda")
+           for h, w in shapes]
+    x, y = (-0.1 + 1.2 * torch.rand((G, T, 3, S), generator=g, device="cuda")
+            for _ in range(2))
+    aw = torch.rand((G, 3, T * S), generator=g, device="cuda")
+    aw[..., real:] = 0.0                              # the padded tail
+    aw = aw.reshape(G, 3, T, S).transpose(1, 2).contiguous()
+    args = (*vms, x, y, aw, shapes, ch)
+    out = deform_sample_fused(*args)
+    torch.cuda.synchronize()
+    plain = deform_sample_fused_reference(*args)
+    err = (out - plain).abs().max().item()
+    print(f"K5b deform_sample_fused at G={G} T={T} S={S} ch={ch} levels="
+          f"{shapes}: max_abs_err={err:.3e} (atol {K5B_ATOL})")
+    check(torch.isfinite(out).all().item(), "K5b output not finite")
+    check(err <= K5B_ATOL, f"K5b disagrees with its plain version: {err}")
+    check(out.abs().max().item() > 1.0, "K5b sampled nothing")
+
+    ms = cuda_time_ms(lambda: deform_sample_fused(*args), 20)
+    plain_ms = cuda_time_ms(lambda: deform_sample_fused_reference(*args), 3)
+    # corners inside their level map: what this data makes the kernel read
+    sizes = torch.tensor([[w, h] for h, w in shapes], device="cuda")
+    xy0 = torch.floor(torch.stack([x, y], -1) * sizes[:, None] - 0.5)
+    inside = [((xy0[..., i:i + 1] + d >= 0)
+               & (xy0[..., i:i + 1] + d <= sizes[:, None, i:i + 1] - 1))
+              for i in range(2) for d in (0, 1)]
+    corners = sum(((inside[a] & inside[2 + b]).sum().item()
+                   for a in (0, 1) for b in (0, 1)))
+    n_bytes = 4 * (sum(v.numel() for v in vms) + 3 * x.numel() + out.numel())
+    n_ops = x.numel() * (18 + 2 * ch) + corners * 2 * ch
+    bound = _bound(n_bytes, n_ops, PEAK_FP32_FLOPS)
+    print(f"K5b time {ms:.4f} ms, plain {plain_ms:.4f} ms; {corners} of "
+          f"{4 * x.numel()} corners inside; {bound['text']}")
+    return {"name": "deform_sample_fused", "route": "cuda",
+            "source": "mal_tpu_torch/csrc/deform_sample.cu",
+            "replaces": "mal_tpu/ops/pallas/deform_sample.py:213",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None}
+
+
+def small_temporal_reference_phase(fast: bool = False) -> None:
+    """One temporal step at 64x96 with a Swin-T Mask2Former: GPU against
+    CPU, from the same weights, batch and draws. `fast`: in fast mode (bf16
+    nets and payloads, the segmenter's blocks as K2 and K3 on the GPU and
+    as their plain versions on the CPU)."""
+    import torch
+
+    from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
     from mal_tpu_torch.data.synthetic import synthetic_batch
     from mal_tpu_torch.segment.mask2former import Mask2Former, make_seg_fn
     from mal_tpu_torch.train.state import create_train_state
     from mal_tpu_torch.train.step import make_train_step
 
     cfg = Config(height=64, width=96, num_depth_bins=16, batch_size=2,
-                 temporal=True, ins_threshold=0.0)
+                 temporal=True, ins_threshold=0.0,
+                 **(TRAIN_FAST_SETTINGS if fast else {}))
     batch = synthetic_batch(cfg, torch.Generator().manual_seed(3), "cpu")
     B, H, W = 2, cfg.height, cfg.width
     g = torch.Generator().manual_seed(4)
@@ -363,7 +669,8 @@ def small_temporal_reference_phase() -> None:
     res = {}
     for dev in ("cpu", "cuda"):
         seg = Mask2Former(swin_size="tiny", num_queries=20, device=dev,
-                          generator=torch.Generator().manual_seed(1))
+                          generator=torch.Generator().manual_seed(1),
+                          bf16_backbone=fast, fused_swin=fast)
         seg_fn = make_seg_fn(seg, cfg.max_instances)
         b = _to(batch, dev)
         bits = seg_fn(b["color"]["0"]).masks.cpu()
@@ -374,13 +681,17 @@ def small_temporal_reference_phase() -> None:
         res[dev] = (m["loss"].item(), m["syn_items"].item(), bits)
     (l_cpu, n_cpu, b_cpu), (l_gpu, n_gpu, b_gpu) = res["cpu"], res["cuda"]
     flips = (b_cpu != b_gpu).float().mean().item()
-    print(f"small temporal reference (64x96, B=2, Swin-T, 20 queries): loss "
-          f"cpu {l_cpu:.6f} gpu {l_gpu:.6f}; matched items cpu {n_cpu:.0f} "
-          f"gpu {n_gpu:.0f}; segmenter mask bits differing {flips:.2e} "
-          f"(max {SEG_MAX_BIT_FLIPS})")
-    check(flips <= SEG_MAX_BIT_FLIPS, "GPU segmenter masks != CPU masks")
-    check(n_gpu > 0 and n_gpu == n_cpu, "matching differs or found nothing")
-    check(abs(l_cpu - l_gpu) <= TEMPORAL_LOSS_RTOL * abs(l_cpu),
+    max_flips = FAST_SEG_MAX_BIT_FLIPS if fast else SEG_MAX_BIT_FLIPS
+    rtol = FAST_LOSS_RTOL if fast else TEMPORAL_LOSS_RTOL
+    print(f"small {'fast-mode ' if fast else ''}temporal reference (64x96, "
+          f"B=2, Swin-T, 20 queries): loss cpu {l_cpu:.6f} gpu {l_gpu:.6f} "
+          f"(rtol {rtol}); matched items cpu {n_cpu:.0f} gpu {n_gpu:.0f}; "
+          f"segmenter mask bits differing {flips:.2e} (max {max_flips})")
+    check(flips <= max_flips, "GPU segmenter masks != CPU masks")
+    # in fast mode a flipped mask bit may change which instances pair up
+    check(n_gpu > 0 and (fast or n_gpu == n_cpu),
+          "matching differs or found nothing")
+    check(abs(l_cpu - l_gpu) <= rtol * abs(l_cpu),
           "GPU temporal loss != CPU temporal loss")
 
 
@@ -476,7 +787,7 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
     return launches, state, batch
 
 
-def main_path_phase(steps: int, profile: bool) -> None:
+def main_path_phase(steps: int, profile: bool) -> dict[str, int]:
     """The path without the temporal hint at `Config()`."""
     from mal_tpu_torch.config import Config
     from mal_tpu_torch.ops.cuda.cost_volume_kernel import plane_sweep_diffs
@@ -490,54 +801,87 @@ def main_path_phase(steps: int, profile: bool) -> None:
                               "profile_step" if profile else None)
     check(launches["plane_sweep_diffs"] == steps + 1,
           "K1 launch count != steps + evals")
+    return launches
 
 
-def temporal_path_phase(steps: int, profile: bool) -> dict[str, int]:
-    """This slice's main path: the temporal hint with the full-width
-    Swin-L Mask2Former."""
+def _segmenter_forward_ms(seg_fn, images, reps: int = 3) -> list[float]:
     import torch
 
-    from mal_tpu_torch.config import Config
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seg_fn(images)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def temporal_path_phase(steps: int, profile: bool, fast: bool) -> dict[str, int]:
+    """The temporal hint with the full-width Swin-L Mask2Former: in exact
+    fp32 (the unfused blocks around K4), or with `fast` in fast mode, this
+    slice's main path (bf16 nets and payloads, every Swin block as K2 and
+    K3)."""
+    import torch
+
+    from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
     from mal_tpu_torch.ops.cuda.cost_volume_kernel import plane_sweep_diffs
     from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
+    from mal_tpu_torch.ops.cuda.swin_block import (swin_attn_fused,
+                                                   swin_mlp_fused)
     from mal_tpu_torch.ops.cuda.window_attention import window_attention
-    from mal_tpu_torch.segment.mask2former import Mask2Former, make_seg_fn
+    from mal_tpu_torch.segment.mask2former import (Mask2Former, make_seg_fn,
+                                                   resolve_fused_swin)
     from mal_tpu_torch.segment.matcher import match_instances
     from mal_tpu_torch.temporal import image_synthesis
 
-    cfg = Config(temporal=True, ins_threshold=0.0)
+    cfg = Config(temporal=True, ins_threshold=0.0,
+                 **(TRAIN_FAST_SETTINGS if fast else {}))
+    fused = resolve_fused_swin(cfg)
+    check(fused == fast, f"resolve_fused_swin gave {fused} with fast={fast}")
+
+    def build(bf16: bool, fused_swin: bool):
+        seg = Mask2Former(generator=torch.Generator().manual_seed(1),
+                          bf16_backbone=bf16, fused_swin=fused_swin)
+        return seg, make_seg_fn(seg, cfg.max_instances)
+
     t0 = time.perf_counter()
-    seg = Mask2Former(generator=torch.Generator().manual_seed(1))
-    seg_fn = make_seg_fn(seg, cfg.max_instances)
+    seg, seg_fn = build(fast, fused)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in seg.parameters())
-    print(f"main path: Config(temporal=True, ins_threshold=0.0) "
-          f"{cfg.height}x{cfg.width} batch {cfg.batch_size}; Mask2Former "
-          f"Swin-L, {n_params / 1e6:.1f} M parameters, built in "
+    print(f"{'main path, fast mode' if fast else 'temporal path'}: "
+          f"Config(temporal=True, ins_threshold=0.0"
+          f"{', **TRAIN_FAST_SETTINGS' if fast else ''}) {cfg.height}x"
+          f"{cfg.width} batch {cfg.batch_size}, {cfg.compute_dtype}; "
+          f"Mask2Former Swin-L (bf16_backbone={fast}, fused_swin={fused}), "
+          f"{n_params / 1e6:.1f} M parameters, built in "
           f"{time.perf_counter() - t0:.2f} s; {steps} steps + 1 eval")
-    counters = [plane_sweep_diffs, window_attention, ms_deform_attn_core]
+    counters = [plane_sweep_diffs, swin_attn_fused, swin_mlp_fused,
+                window_attention, ms_deform_attn_core]
+    name = "profile_fast_step" if fast else "profile_temporal_step"
     launches, _, batch = run_path(cfg, steps, seg_fn, counters,
-                                  "profile_temporal_step" if profile else None)
+                                  name if profile else None)
     # per step: 3 segmenter forwards (the current frame, two warped
     # frames) of 24 Swin blocks and 6 deformable encoder layers
-    want = {"plane_sweep_diffs": steps + 1, "window_attention": 72 * steps,
+    blocks = 72 * steps
+    want = {"plane_sweep_diffs": steps + 1,
+            "swin_attn_fused": blocks if fused else 0,
+            "swin_mlp_fused": blocks if fused else 0,
+            "window_attention": 0 if fused else blocks,
             "ms_deform_attn_core": 18 * steps}
     for name, n in want.items():
         check(launches[name] == n, f"{name} launched {launches[name]} times "
-              f"on the main path, not {n}")
+              f"on this path, not {n}")
 
-    seg_ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        inst = seg_fn(batch["color"]["0"])
-        torch.cuda.synchronize()
-        seg_ms.append((time.perf_counter() - t0) * 1e3)
+    images = batch["color"]["0"]
+    seg_ms = _segmenter_forward_ms(seg_fn, images)
+    inst = seg_fn(images)
     check(tuple(inst.masks.shape) == (cfg.batch_size, cfg.max_instances,
                                       cfg.height, cfg.width),
           f"segmenter masks {tuple(inst.masks.shape)}")
     check(torch.isfinite(inst.scores).all().item(), "segmenter scores")
-    print(f"segmenter forward at batch {cfg.batch_size}: "
+    print(f"segmenter forward at batch {cfg.batch_size}"
+          f"{' (fused bf16)' if fast else ''}: "
           f"{', '.join(f'{t:.2f}' for t in seg_ms)} ms")
 
     # the synthesis on the adjacent frames, and its host-side matching
@@ -548,13 +892,35 @@ def temporal_path_phase(steps: int, profile: bool) -> dict[str, int]:
     match_instances(*others, inst.threshold(cfg.ins_threshold))
     match_ms = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
-    _, _, has = image_synthesis(*frames, inst, *others, cfg.ins_threshold)
+    _, _, has = image_synthesis(
+        *frames, inst, *others, cfg.ins_threshold,
+        payload_dtype=torch.bfloat16 if fast else None)
     torch.cuda.synchronize()
     syn_ms = (time.perf_counter() - t0) * 1e3
     print(f"image_synthesis {syn_ms:.2f} ms ({has.sum().item()} items with a "
           f"matched pair), of which matching {match_ms:.2f} ms (the costs "
           f"copied to the host once, {cfg.batch_size * 2} assignments "
           f"solved there)")
+
+    if fast:
+        # the same weights in the other two forms of the segmenter, in turns
+        del others, frames
+        _, unfused_fn = build(True, False)
+        _, fp32_fn = build(False, False)
+        rows = {"fused bf16": seg_fn, "unfused bf16": unfused_fn,
+                "fp32": fp32_fn, "fused bf16 again": seg_fn}
+        for label, fn in rows.items():
+            ms = _segmenter_forward_ms(fn, images)
+            print(f"segmenter forward, {label}: "
+                  f"{', '.join(f'{t:.2f}' for t in ms)} ms")
+        exact = fp32_fn(images).masks
+        for label, fn in (("fused bf16", seg_fn), ("unfused bf16", unfused_fn)):
+            flips = (fn(images).masks != exact).float().mean().item()
+            print(f"mask bits on which the {label} segmenter differs from "
+                  f"the fp32 one (random weights): {flips:.3e} (max "
+                  f"{FAST_VS_FP32_MAX_BIT_FLIPS})")
+            check(flips <= FAST_VS_FP32_MAX_BIT_FLIPS,
+                  f"the {label} segmenter's masks are far from the fp32 ones")
     return launches
 
 
@@ -564,6 +930,10 @@ def main(argv=None) -> int:
                         help="training steps of each path")
     parser.add_argument("--profile", action="store_true",
                         help="profile one extra step after each path")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="build the kernels, hold each against its plain "
+                             "version, print their line and stop: a quick "
+                             "check of the kernels alone, with no result line")
     args = parser.parse_args(argv)
 
     import torch
@@ -591,14 +961,26 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernels = [k1_phase(), k4_phase(), k5_phase()]
+    kernels = [k1_phase(), k2_phase(), k3_phase(), k4_phase(), k5_phase(),
+               k5b_phase()]
+    if args.kernels_only:
+        print(json.dumps({"kernels": kernels}))
+        return 0
     small_reference_phase()
     small_temporal_reference_phase()
-    main_path_phase(args.steps, args.profile)
-    launches = temporal_path_phase(args.steps, args.profile)
+    small_temporal_reference_phase(fast=True)
+    by_path = {"no_hint": main_path_phase(args.steps, args.profile),
+               "temporal": temporal_path_phase(args.steps, args.profile, False),
+               "fast": temporal_path_phase(args.steps, args.profile, True)}
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} never launched on the main path")
+        k["launches_by_path"] = {path: counts.get(k["name"], 0)
+                                 for path, counts in by_path.items()}
+        k["launches"] = sum(k["launches_by_path"].values())
+        # K5b has no caller on any path, here as in mal_tpu (its
+        # `segment/msdeform.py` calls only the v4 sampler): its phase above
+        # is its launch
+        check(k["launches"] > 0 or k["name"] == "deform_sample_fused",
+              f"{k['name']} never launched on any path")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

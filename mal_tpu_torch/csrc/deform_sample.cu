@@ -1,4 +1,5 @@
-// Multi-scale deformable attention sampling, forward only (kernel K5).
+// Multi-scale deformable attention sampling, forward only: kernel K5, and
+// below it kernel K5b, the same sampling in a sample-major layout.
 //
 // Replaces the TPU kernel mal_tpu/ops/pallas/deform_sample.py:
 // deform_sample_fused_v4 (called through
@@ -95,9 +96,108 @@ __global__ void deform_sample_kernel(const float* __restrict__ value,
   out[static_cast<size_t>(bq) * row + threadIdx.x] = acc;
 }
 
+// Kernel K5b: the same sampling in the sample-major layout of the TPU kernel
+// mal_tpu/ops/pallas/deform_sample.py: deform_sample_fused (v2). For every
+// (batch x head) group g, tile t, channel c and sample s:
+//     out[g, t, c, s] = sum_l aw[g,t,l,s] *
+//                       bilinear(vm_l[g, r * ch + c, k], x[g,t,l,s], y[g,t,l,s]),
+// summed over the 3 levels and not over points: every sample is a query with
+// one point. vm_l (G, h_l * ch, w_l) holds row r of level l in rows
+// r * ch .. r * ch + ch; x, y, aw are (G, T, 3, S).
+//
+// Bound by bytes, like K5: out (G, T, ch, S) is ch times larger than each of
+// the three coordinate inputs and is written once. One thread per sample: it
+// computes the 12 corner offsets and weights (with aw folded in) once, then
+// walks the ch channels, so a warp reads 32 consecutive samples' coordinates
+// and writes 32 consecutive floats per channel. The TPU kernel's one-hot
+// matmuls and per-row masks are not carried over.
+constexpr int kMajorLevels = 3;
+constexpr int kMajorThreads = 128;
+
+struct MajorLevels {
+  const float* vm[kMajorLevels];
+  int h[kMajorLevels];
+  int w[kMajorLevels];
+};
+
+__global__ void deform_sample_major_kernel(const float* __restrict__ x,
+                                           const float* __restrict__ y,
+                                           const float* __restrict__ aw,
+                                           float* __restrict__ out,
+                                           MajorLevels lv, int T, int S,
+                                           int ch) {
+  const int chunks = (S + kMajorThreads - 1) / kMajorThreads;
+  const int g = blockIdx.y;
+  const int t = blockIdx.x / chunks;
+  const int s = (blockIdx.x - t * chunks) * kMajorThreads + threadIdx.x;
+  if (s >= S) return;
+  const size_t gt = static_cast<size_t>(g) * T + t;
+
+  int off[kMajorLevels][4];
+  float wgt[kMajorLevels][4];
+#pragma unroll
+  for (int l = 0; l < kMajorLevels; ++l) {
+    const int hl = lv.h[l];
+    const int wl = lv.w[l];
+    const size_t at = (gt * kMajorLevels + l) * S + s;
+    const float xs = x[at] * wl - 0.5f;
+    const float ys = y[at] * hl - 0.5f;
+    const float a = aw[at];
+    const float x0f = floorf(xs);
+    const float y0f = floorf(ys);
+    const float wx1 = xs - x0f;
+    const float wy1 = ys - y0f;
+    const int x0 = static_cast<int>(fminf(fmaxf(x0f, -2.f), wl + 1.f));
+    const int y0 = static_cast<int>(fminf(fmaxf(y0f, -2.f), hl + 1.f));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int xi = x0 + (q & 1);
+      const int yi = y0 + (q >> 1);
+      const bool inside = xi >= 0 && xi < wl && yi >= 0 && yi < hl;
+      const float w = ((q >> 1) ? wy1 : 1.f - wy1) * ((q & 1) ? wx1 : 1.f - wx1);
+      off[l][q] = inside ? yi * ch * wl + xi : 0;
+      wgt[l][q] = inside ? w * a : 0.f;
+    }
+  }
+
+  float* o = out + gt * ch * S + s;
+  for (int c = 0; c < ch; ++c) {
+    float acc = 0.f;
+#pragma unroll
+    for (int l = 0; l < kMajorLevels; ++l) {
+      const int wl = lv.w[l];
+      const float* v = lv.vm[l] +
+                       (static_cast<size_t>(g) * lv.h[l] * ch + c) * wl;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc += wgt[l][q] * v[off[l][q]];
+    }
+    o[static_cast<size_t>(c) * S] = acc;
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// K5b. vm0 / vm1 / vm2: (G, h_l * ch, w_l); x, y, aw: (G, T, 3, S); out:
+// (G, T, ch, S), all fp32 on the device. level_h / level_w: 3 host ints each.
+// Launches on `stream` and returns cudaGetLastError().
+int deform_sample_major_f32(const float* vm0, const float* vm1,
+                            const float* vm2, const float* x, const float* y,
+                            const float* aw, float* out, const int* level_h,
+                            const int* level_w, int G, int T, int S, int ch,
+                            void* stream) {
+  MajorLevels lv = {{vm0, vm1, vm2}, {}, {}};
+  for (int l = 0; l < kMajorLevels; ++l) {
+    lv.h[l] = level_h[l];
+    lv.w[l] = level_w[l];
+  }
+  const int chunks = (S + kMajorThreads - 1) / kMajorThreads;
+  deform_sample_major_kernel<<<dim3(T * chunks, G), kMajorThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      x, y, aw, out, lv, T, S, ch);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // value: (B, S, heads, ch); loc: (B, Lq, heads, L, P, 2); aw: (B, Lq, heads,
 // L, P); out: (B, Lq, heads * ch), all fp32 on the device. level_h / level_w

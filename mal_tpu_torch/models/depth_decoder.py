@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mal_tpu_torch.models.resnet import Conv2d
 from mal_tpu_torch.ops.interp import upsample2x_nearest
 
 Tensor = torch.Tensor
@@ -22,9 +23,10 @@ Tensor = torch.Tensor
 class Conv3x3(nn.Module):
     """Reflect-pad 1 + 3x3 conv (`manydepth/layers.py:103-135`)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = nn.Conv2d(in_ch, out_ch, 3)
+        self.conv = Conv2d(in_ch, out_ch, 3, dtype=dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.conv(F.pad(x, (1, 1, 1, 1), mode="reflect"))
@@ -33,27 +35,32 @@ class Conv3x3(nn.Module):
 class ConvBlock(nn.Module):
     """Conv3x3 + ELU."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv = Conv3x3(in_ch, out_ch)
+        self.conv = Conv3x3(in_ch, out_ch, dtype)
 
     def forward(self, x: Tensor) -> Tensor:
         return F.elu(self.conv(x))
 
 
 class DepthDecoder(nn.Module):
-    """5-stage decoder over an encoder pyramid; returns disparity (B, 1, H, W)."""
+    """5-stage decoder over an encoder pyramid; returns disparity (B, 1, H,
+    W) in fp32: with `dtype=torch.bfloat16` the convolutions and ELUs run in
+    bf16 and the sigmoid, like everything after it, in fp32
+    (`mal_tpu/models/depth_decoder.py:66`)."""
 
     def __init__(self, num_ch_enc: tuple[int, ...],
-                 num_ch_dec: tuple[int, ...] = (16, 32, 64, 128, 256)):
+                 num_ch_dec: tuple[int, ...] = (16, 32, 64, 128, 256),
+                 dtype: torch.dtype | None = None):
         super().__init__()
         layers = []
         for i in range(4, -1, -1):
             in_ch = num_ch_enc[-1] if i == 4 else num_ch_dec[i + 1]
-            layers.append(ConvBlock(in_ch, num_ch_dec[i]))
+            layers.append(ConvBlock(in_ch, num_ch_dec[i], dtype))
             skip = num_ch_enc[i - 1] if i > 0 else 0
-            layers.append(ConvBlock(num_ch_dec[i] + skip, num_ch_dec[i]))
-        layers.append(Conv3x3(num_ch_dec[0], 1))
+            layers.append(ConvBlock(num_ch_dec[i] + skip, num_ch_dec[i], dtype))
+        layers.append(Conv3x3(num_ch_dec[0], 1, dtype))
         self.decoder = nn.ModuleList(layers)
 
     def forward(self, input_features: list[Tensor]) -> Tensor:
@@ -61,6 +68,6 @@ class DepthDecoder(nn.Module):
         for stage, i in enumerate(range(4, -1, -1)):
             x = upsample2x_nearest(self.decoder[2 * stage](x))
             if i > 0:
-                x = torch.cat([x, input_features[i - 1]], dim=1)
+                x = torch.cat([x, input_features[i - 1].to(x.dtype)], dim=1)
             x = self.decoder[2 * stage + 1](x)
-        return torch.sigmoid(self.decoder[10](x))
+        return torch.sigmoid(self.decoder[10](x).float())

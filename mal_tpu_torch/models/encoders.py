@@ -12,6 +12,11 @@ layout (`layer0 = conv1 + bn1 + relu`, `layer1 = maxpool + layer1`,
 computed without gradient, as the reference's `torch.no_grad()` blocks and
 `mal_tpu`'s `stop_gradient` do; the volume comes from kernel K1
 (`ops/cuda/cost_volume_kernel.py`).
+
+`dtype` (None or `torch.bfloat16`) is `mal_tpu`'s: the trunks compute in it
+(`models/resnet.py`), and the matching features go back to fp32 before the
+cost volume (`mal_tpu/models/encoders.py:129, :136`), so K1 is fed fp32 in
+either mode.
 """
 
 from __future__ import annotations
@@ -19,8 +24,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from mal_tpu_torch.models.resnet import (ResNetFeatures, imagenet_normalize,
-                                         num_ch_enc)
+from mal_tpu_torch.models.resnet import (Conv2d, ResNetFeatures,
+                                         imagenet_normalize, num_ch_enc)
 from mal_tpu_torch.ops.cost_volume import (compute_depth_bins,
                                            confidence_mask_from_cost,
                                            indices_to_disparity)
@@ -33,9 +38,10 @@ Tensor = torch.Tensor
 class ResnetEncoder(nn.Module):
     """Plain ResNet pyramid encoder with input normalisation."""
 
-    def __init__(self, num_layers: int = 18, num_input_images: int = 1):
+    def __init__(self, num_layers: int = 18, num_input_images: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.encoder = ResNetFeatures(num_layers, num_input_images)
+        self.encoder = ResNetFeatures(num_layers, num_input_images, dtype)
         self.num_ch_enc = self.encoder.num_ch_enc
 
     def forward(self, image: Tensor) -> list[Tensor]:
@@ -53,11 +59,12 @@ class ResnetEncoderMatching(nn.Module):
     """
 
     def __init__(self, num_layers: int = 18, num_depth_bins: int = 96,
-                 depth_binning: str = "linear"):
+                 depth_binning: str = "linear",
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.num_depth_bins = num_depth_bins
         self.depth_binning = depth_binning
-        trunk = ResNetFeatures(num_layers, 1)
+        trunk = ResNetFeatures(num_layers, 1, dtype)
         self.layer0 = nn.Sequential(trunk.conv1, trunk.bn1, nn.ReLU(inplace=True))
         self.layer1 = nn.Sequential(nn.MaxPool2d(3, 2, 1), trunk.layer1)
         self.layer2 = trunk.layer2
@@ -66,7 +73,7 @@ class ResnetEncoderMatching(nn.Module):
         self.num_ch_enc = num_ch_enc(num_layers)
         width = self.num_ch_enc[1]
         self.reduce_conv = nn.Sequential(
-            nn.Conv2d(width + num_depth_bins, width, 3, padding=1),
+            Conv2d(width + num_depth_bins, width, 3, padding=1, dtype=dtype),
             nn.ReLU(inplace=True))
 
     def feature_extraction(self, image: Tensor) -> list[Tensor]:
@@ -80,13 +87,13 @@ class ResnetEncoderMatching(nn.Module):
         B, F = lookup_images.shape[:2]
 
         feats = self.feature_extraction(current_image)
-        cur_feats = feats[-1]                       # (B, 64, h, w) at 1/4
+        cur_feats = feats[-1].float()               # (B, 64, h, w) at 1/4
 
         # constant w.r.t. the parameters (`resnet_encoder.py:292-305`); in
         # training mode the lookup pass still updates the BN statistics
         with torch.no_grad():
             lookup = self.feature_extraction(lookup_images.flatten(0, 1))[-1]
-            lookup = lookup.permute(0, 2, 3, 1).unflatten(0, (B, F))
+            lookup = lookup.float().permute(0, 2, 3, 1).unflatten(0, (B, F))
             depth_bins = compute_depth_bins(min_depth_bin, max_depth_bin,
                                             self.num_depth_bins,
                                             self.depth_binning)

@@ -31,6 +31,7 @@ from mal_tpu_torch.models.depth_decoder import DepthDecoder
 from mal_tpu_torch.models.encoders import ResnetEncoder, ResnetEncoderMatching
 from mal_tpu_torch.models.pose_decoder import PoseCNN, PoseDecoder
 from mal_tpu_torch.ops.interp import resize_nearest
+from mal_tpu_torch.ops.precision import compute_dtype_of
 
 Tensor = torch.Tensor
 
@@ -61,25 +62,32 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
 class MALModel(nn.Module):
     """The ManyDepth+MAL model on `device` (default: the GPU, raising if
     there is none). Weights are drawn from `generator` (default: seed 0) on
-    the CPU, then moved."""
+    the CPU, then moved. `cfg.compute_dtype="bfloat16"` (fast mode) runs the
+    trunks and the decoders' convolutions in bf16 on fp32 parameters
+    (`mal_tpu/models/mal_model.py:42`); the pair-input PoseCNN, the poses,
+    the disparities and the cost volume stay fp32."""
 
     def __init__(self, cfg: Config, device: str | torch.device | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.cfg = cfg
         device = resolve_device(device)
+        dtype = compute_dtype_of(cfg.compute_dtype)
         self.encoder = ResnetEncoderMatching(cfg.num_layers, cfg.num_depth_bins,
-                                             cfg.depth_binning)
-        self.depth = DepthDecoder(self.encoder.num_ch_enc)
-        self.mono_encoder = ResnetEncoder(18)
-        self.mono_depth = DepthDecoder(self.mono_encoder.num_ch_enc)
+                                             cfg.depth_binning, dtype)
+        self.depth = DepthDecoder(self.encoder.num_ch_enc, dtype=dtype)
+        self.mono_encoder = ResnetEncoder(18, dtype=dtype)
+        self.mono_depth = DepthDecoder(self.mono_encoder.num_ch_enc,
+                                       dtype=dtype)
         if cfg.pose_cnn:
             # pair-input PoseCNN (`mal_model.py:66-71`)
             self.pose_encoder = PoseCNN(num_input_frames=2)
             self.pose = None
         else:
-            self.pose_encoder = ResnetEncoder(18, num_input_images=2)
-            self.pose = PoseDecoder(self.pose_encoder.num_ch_enc[-1], 2)
+            self.pose_encoder = ResnetEncoder(18, num_input_images=2,
+                                              dtype=dtype)
+            self.pose = PoseDecoder(self.pose_encoder.num_ch_enc[-1], 2,
+                                    dtype)
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_like_flax(self, generator)

@@ -5,6 +5,11 @@ every encoder of the reference uses (`manydepth/networks/resnet_encoder.py:
 25-68,356-398`), returning the 5-scale pyramid [1/2, 1/4, 1/8, 1/16, 1/32].
 Submodules carry torchvision's names (`conv1`, `bn1`, `layerN.M.*`), so the
 state dict has the reference's key layout.
+
+`dtype` (None or `torch.bfloat16`) is `mal_tpu`'s `dtype` argument: the
+parameters and the BN running statistics stay fp32; every convolution runs
+in `dtype`, and every BatchNorm normalises in fp32 and returns `dtype`, as
+flax's `nn.Conv(dtype=...)` and `nn.BatchNorm(dtype=...)` do.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from mal_tpu_torch.ops import precision
 
 Tensor = torch.Tensor
 
@@ -27,7 +34,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm whose running variance follows flax: the EMA takes the
     *biased* batch variance, where `torch.nn.BatchNorm2d` takes the unbiased
     one. Forward outputs are the same either way; the running statistics
-    after a training forward are what differ, strongly at small maps."""
+    after a training forward are what differ, strongly at small maps.
+
+    A bf16 input is normalised in fp32 (statistics, scale and shift) and the
+    result rounded to bf16, by torch's own mixed-type batch norm."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -50,24 +60,37 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y
 
 
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` with fp32 parameters, computed in `dtype` (None: in the
+    input's type) as `ops/precision.py:conv2d` says."""
+
+    def __init__(self, *args, dtype: torch.dtype | None = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: Tensor) -> Tensor:
+        return precision.conv2d(self, x, self.compute_dtype)
+
+
 def conv(in_ch: int, out_ch: int, k: int, stride: int = 1, padding: int = 0,
-         bias: bool = False) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, k, stride=stride, padding=padding, bias=bias)
+         bias: bool = False, dtype: torch.dtype | None = None) -> Conv2d:
+    return Conv2d(in_ch, out_ch, k, stride=stride, padding=padding, bias=bias,
+                  dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, in_ch: int, filters: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
-        self.conv1 = conv(in_ch, filters, 3, stride, 1)
+        self.conv1 = conv(in_ch, filters, 3, stride, 1, dtype=dtype)
         self.bn1 = BatchNorm2d(filters)
-        self.conv2 = conv(filters, filters, 3, 1, 1)
+        self.conv2 = conv(filters, filters, 3, 1, 1, dtype=dtype)
         self.bn2 = BatchNorm2d(filters)
-        self.downsample = (nn.Sequential(conv(in_ch, filters, 1, stride),
-                                         BatchNorm2d(filters))
-                           if downsample else None)
+        self.downsample = (nn.Sequential(
+            conv(in_ch, filters, 1, stride, dtype=dtype), BatchNorm2d(filters))
+            if downsample else None)
 
     def forward(self, x: Tensor) -> Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -80,18 +103,18 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, in_ch: int, filters: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype: torch.dtype | None = None):
         super().__init__()
         out_ch = filters * 4
-        self.conv1 = conv(in_ch, filters, 1)
+        self.conv1 = conv(in_ch, filters, 1, dtype=dtype)
         self.bn1 = BatchNorm2d(filters)
-        self.conv2 = conv(filters, filters, 3, stride, 1)
+        self.conv2 = conv(filters, filters, 3, stride, 1, dtype=dtype)
         self.bn2 = BatchNorm2d(filters)
-        self.conv3 = conv(filters, out_ch, 1)
+        self.conv3 = conv(filters, out_ch, 1, dtype=dtype)
         self.bn3 = BatchNorm2d(out_ch)
-        self.downsample = (nn.Sequential(conv(in_ch, out_ch, 1, stride),
-                                         BatchNorm2d(out_ch))
-                           if downsample else None)
+        self.downsample = (nn.Sequential(
+            conv(in_ch, out_ch, 1, stride, dtype=dtype), BatchNorm2d(out_ch))
+            if downsample else None)
 
     def forward(self, x: Tensor) -> Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -117,19 +140,22 @@ class ResNetFeatures(nn.Module):
     arguments do.
     """
 
-    def __init__(self, num_layers: int = 18, num_input_images: int = 1):
+    def __init__(self, num_layers: int = 18, num_input_images: int = 1,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         layout = _LAYOUTS[num_layers]
         block = Bottleneck if num_layers in _BOTTLENECK else BasicBlock
-        self.conv1 = conv(3 * num_input_images, 64, 7, 2, 3)
+        # the first convolution casts the (normalised, fp32) image to `dtype`
+        self.conv1 = conv(3 * num_input_images, 64, 7, 2, 3, dtype=dtype)
         self.bn1 = BatchNorm2d(64)
         in_ch = 64
         for i, (width, n) in enumerate(zip((64, 128, 256, 512), layout)):
             stride = 1 if i == 0 else 2
             out_ch = width * block.expansion
             blocks = [block(in_ch, width, stride,
-                            downsample=stride != 1 or in_ch != out_ch)]
-            blocks += [block(out_ch, width) for _ in range(n - 1)]
+                            downsample=stride != 1 or in_ch != out_ch,
+                            dtype=dtype)]
+            blocks += [block(out_ch, width, dtype=dtype) for _ in range(n - 1)]
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             in_ch = out_ch
         self.num_ch_enc = num_ch_enc(num_layers)

@@ -13,6 +13,14 @@ it is laid out.
 - `plane_sweep_diffs_reference`: the plain PyTorch version of the same
   function, in the kernel's order of operations.
 - `plane_sweep_cost_volume_kernel`: the full cost volume around the kernel.
+
+`mal_tpu`'s `cv_mxu_precision` ("highest", or "default" in fast mode)
+chooses how many bf16 passes the TPU's matrix unit spends on the Pallas
+kernel's one-hot interpolation products
+(`mal_tpu/ops/pallas/cost_volume_kernel.py:39-43`). The CUDA kernel gathers
+in fp32 and has no such product, so `Config.cv_mxu_precision` is accepted
+and changes nothing here: K1 is exact in fast mode, where the TPU kernel is
+approximate, and is fed the fp32 casts of the bf16 trunk's features.
 """
 
 from __future__ import annotations

@@ -12,6 +12,18 @@ bounds it and how it is laid out.
   version. It never falls back from the kernel to the plain version.
 - `ms_deform_attn_core_per_level`: the plain PyTorch version, one
   `grid_sample` per level (`mal_tpu/segment/msdeform.py:27-52`).
+- `deform_sample_fused` (kernel K5b) and `deform_sample_fused_reference`:
+  the same sampling in the sample-major layout of the Pallas kernel
+  `mal_tpu.ops.pallas.deform_sample.deform_sample_fused` (v2), summed over
+  levels but not over points. `mal_tpu` has no caller of that kernel
+  (`segment/msdeform.py:84` imports only v4), and neither has the port: it
+  is an entry point of its own, a second kernel in the same source.
+
+`mal_tpu`'s `mxu_precision` ("high" or "bf16") chooses how many bf16 passes
+the TPU's matrix unit spends on the one-hot interpolation products of these
+kernels. The CUDA kernels gather in fp32 and have no such product, so they
+compute the same exact values in fast mode as in fp32 mode: exact where the
+TPU kernel is approximate.
 """
 
 from __future__ import annotations
@@ -94,6 +106,10 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.POINTER(ctypes.c_int)] * 3
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.deform_sample_major_f32.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.deform_sample_major_f32.restype = ctypes.c_int
         lib.deform_sample_error_string.argtypes = [ctypes.c_int]
         lib.deform_sample_error_string.restype = ctypes.c_char_p
     return lib
@@ -136,3 +152,82 @@ def ms_deform_attn_core(value: Tensor, spatial_shapes: list[tuple[int, int]],
 
 
 ms_deform_attn_core.launches = 0
+
+
+def deform_sample_fused_reference(vm0: Tensor, vm1: Tensor, vm2: Tensor,
+                                  x: Tensor, y: Tensor, aw: Tensor,
+                                  shapes: tuple[tuple[int, int], ...],
+                                  ch: int) -> Tensor:
+    """K5b in plain torch.
+
+    vm_l (G, h_l * ch, w_l): the level's values per (batch x head) group,
+    row r of the level in rows r * ch .. r * ch + ch; x, y, aw (G, T, 3, S):
+    sampling coordinates in [0, 1] and attention weights per level (pad
+    samples carry aw = 0). Returns (G, T, ch, S): the bilinear samples
+    (zeros padding, align_corners=False), weighted and summed over levels.
+    """
+    G, T, L, S = x.shape
+    out = 0.0
+    for lvl, (vm, (h, w)) in enumerate(zip((vm0, vm1, vm2), shapes,
+                                           strict=True)):
+        v = vm.reshape(G, h, ch, w).permute(0, 1, 3, 2).reshape(G, h * w, ch)
+        xs = x[:, :, lvl].reshape(G, T * S) * w - 0.5
+        ys = y[:, :, lvl].reshape(G, T * S) * h - 0.5
+        x0, y0 = xs.floor(), ys.floor()
+        wx1, wy1 = xs - x0, ys - y0
+        acc = 0.0
+        for yi, wy in ((y0, 1.0 - wy1), (y0 + 1, wy1)):
+            for xi, wx in ((x0, 1.0 - wx1), (x0 + 1, wx1)):
+                inside = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).long()
+                val = v.gather(1, idx[..., None].expand(-1, -1, ch))
+                acc = acc + val * (wy * wx * inside)[..., None]
+        out = out + acc * aw[:, :, lvl].reshape(G, T * S, 1)
+    return out.reshape(G, T, S, ch).permute(0, 1, 3, 2).contiguous()
+
+
+def deform_sample_fused(vm0: Tensor, vm1: Tensor, vm2: Tensor, x: Tensor,
+                        y: Tensor, aw: Tensor,
+                        shapes: tuple[tuple[int, int], ...], ch: int) -> Tensor:
+    """K5b (G, T, ch, S); arguments as `deform_sample_fused_reference`.
+    CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    if x.device.type == "cpu":
+        return deform_sample_fused_reference(vm0, vm1, vm2, x, y, aw, shapes,
+                                             ch)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    tensors = {"vm0": vm0, "vm1": vm1, "vm2": vm2, "x": x, "y": y, "aw": aw}
+    for name, t in tensors.items():
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.dim() != 4 or x.shape[2] != 3 or len(shapes) != 3:
+        raise ValueError(f"x {tuple(x.shape)} must be (G, T, 3, S) with 3 "
+                         f"level shapes")
+    G, T, L, S = x.shape
+    if y.shape != x.shape or aw.shape != x.shape:
+        raise ValueError("x, y and aw must have one shape")
+    for vm, (h, w) in zip((vm0, vm1, vm2), shapes):
+        if tuple(vm.shape) != (G, h * ch, w):
+            raise ValueError(f"level values {tuple(vm.shape)} must be "
+                             f"{(G, h * ch, w)}")
+    out = torch.empty((G, T, ch, S), dtype=torch.float32, device=x.device)
+    ints = ctypes.c_int * L
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.deform_sample_major_f32(
+            vm0.data_ptr(), vm1.data_ptr(), vm2.data_ptr(), x.data_ptr(),
+            y.data_ptr(), aw.data_ptr(), out.data_ptr(),
+            ints(*(h for h, _ in shapes)), ints(*(w for _, w in shapes)),
+            G, T, S, ch, torch.cuda.current_stream().cuda_stream)
+    if err:
+        msg = lib.deform_sample_error_string(err).decode()
+        raise RuntimeError(f"deform_sample_fused launch failed: {msg} ({err})")
+    deform_sample_fused.launches += 1
+    return out
+
+
+deform_sample_fused.launches = 0

@@ -44,6 +44,18 @@ def preprocess_images(images: Tensor) -> Tensor:
     return (images * 255.0 - mean) / std
 
 
+def resolve_fused_swin(cfg, device: str | torch.device | None = None) -> bool:
+    """`Config.seg_fused_swin` for the frozen segmenter, None meaning auto:
+    on when the segmenter runs on a CUDA device in fast mode
+    (`compute_dtype="bfloat16"`), the port's reading of
+    `mal_tpu/segment/mask2former.py:47-61` (there: on the TPU and in bf16).
+    In exact fp32 mode and on the CPU auto means off."""
+    if cfg.seg_fused_swin is not None:
+        return cfg.seg_fused_swin
+    return (resolve_device(device).type == "cuda"
+            and cfg.compute_dtype == "bfloat16")
+
+
 def _lecun_normal_(w: Tensor, fan_in: int, generator: torch.Generator):
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
@@ -82,20 +94,28 @@ class Mask2Former(nn.Module):
     """The segmenter on `device` (default: the GPU, raising if there is
     none), with flax-style random weights from `generator` (default: seed
     0), drawn on the CPU and then moved; `load_jax_mask2former` or a
-    detectron2 state dict replaces them."""
+    detectron2 state dict replaces them.
+
+    `bf16_backbone` (fast mode) runs the Swin blocks' and the pixel
+    decoder's FFN Linears in bf16; `fused_swin` runs every Swin block as
+    kernels K2 and K3 (`resolve_fused_swin` says when a configuration asks
+    for it). Neither changes the parameters or the state-dict keys."""
 
     def __init__(self, num_classes: int = 80, swin_size: str = "large",
                  num_queries: int = 100,
                  device: str | torch.device | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 bf16_backbone: bool = False, fused_swin: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.swin_size = swin_size
         embed = CONFIGS[swin_size][0]
-        self.backbone = SwinTransformer(swin_size)
+        self.backbone = SwinTransformer(swin_size, bf16_compute=bf16_backbone,
+                                        fused_block=fused_swin)
         self.sem_seg_head = nn.Module()
         self.sem_seg_head.pixel_decoder = MSDeformAttnPixelDecoder(
-            {f"res{s + 2}": embed * 2 ** s for s in range(4)})
+            {f"res{s + 2}": embed * 2 ** s for s in range(4)},
+            bf16_compute=bf16_backbone)
         self.sem_seg_head.predictor = MaskedTransformerDecoder(
             num_classes=num_classes, num_queries=num_queries)
         if generator is None:

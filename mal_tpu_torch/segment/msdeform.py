@@ -23,8 +23,18 @@ D_MODEL, LEVELS, HEADS, POINTS = 256, 3, 8, 4
 
 
 class MSDeformAttn(nn.Module):
-    def __init__(self):
+    """`mxu_precision` ("high" or "bf16") is `mal_tpu`'s choice of how many
+    bf16 passes the TPU kernel's one-hot interpolation products take
+    (`mal_tpu/segment/msdeform.py:143`). K5 gathers in fp32 and has no such
+    product, so the option is accepted and changes nothing here: exact in
+    both modes."""
+
+    def __init__(self, mxu_precision: str = "high"):
         super().__init__()
+        if mxu_precision not in ("high", "bf16"):
+            raise ValueError(f"mxu_precision must be 'high' or 'bf16', got "
+                             f"{mxu_precision!r}")
+        self.mxu_precision = mxu_precision
         samples = HEADS * LEVELS * POINTS
         self.sampling_offsets = nn.Linear(D_MODEL, samples * 2)
         self.attention_weights = nn.Linear(D_MODEL, samples)

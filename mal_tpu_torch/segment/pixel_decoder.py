@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mal_tpu_torch.ops import precision
 from mal_tpu_torch.ops.interp import resize_bilinear
 from mal_tpu_torch.segment.msdeform import D_MODEL, LEVELS, MSDeformAttn
 
@@ -67,9 +68,14 @@ def position_embedding_sine(h: int, w: int, device=None) -> Tensor:
 
 
 class DeformableEncoderLayer(nn.Module):
-    def __init__(self):
+    """`bf16_compute` (fast mode, `mal_tpu/segment/pixel_decoder.py:31-48`):
+    the two FFN Linears in bf16, the norms and the residual in fp32."""
+
+    def __init__(self, bf16_compute: bool = False):
         super().__init__()
-        self.self_attn = MSDeformAttn()
+        self.compute_dtype = torch.bfloat16 if bf16_compute else None
+        self.self_attn = MSDeformAttn(
+            mxu_precision="bf16" if bf16_compute else "high")
         self.norm1 = nn.LayerNorm(D_MODEL, eps=NORM_EPS)
         self.linear1 = nn.Linear(D_MODEL, FFN_DIM)
         self.linear2 = nn.Linear(FFN_DIM, D_MODEL)
@@ -79,27 +85,31 @@ class DeformableEncoderLayer(nn.Module):
                 spatial_shapes) -> Tensor:
         attn = self.self_attn(src + pos, reference_points, src, spatial_shapes)
         src = self.norm1(src + attn)
-        y = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + y)
+        dt = self.compute_dtype
+        y = F.relu(precision.linear(self.linear1, src, dt))
+        y = precision.linear(self.linear2, y, dt)
+        return self.norm2(src + y.float())
 
 
 class _Transformer(nn.Module):
-    def __init__(self):
+    def __init__(self, bf16_compute: bool = False):
         super().__init__()
         self.level_embed = nn.Parameter(torch.zeros(LEVELS, D_MODEL))
         self.encoder = nn.Module()
         self.encoder.layers = nn.ModuleList(
-            [DeformableEncoderLayer() for _ in range(ENCODER_LAYERS)])
+            [DeformableEncoderLayer(bf16_compute)
+             for _ in range(ENCODER_LAYERS)])
 
 
 class MSDeformAttnPixelDecoder(nn.Module):
-    def __init__(self, in_channels: dict[str, int]):
+    def __init__(self, in_channels: dict[str, int],
+                 bf16_compute: bool = False):
         super().__init__()
         d = D_MODEL
         self.input_proj = nn.ModuleList([
             nn.Sequential(nn.Conv2d(in_channels[k], d, 1), _gn(d))
             for k in ("res5", "res4", "res3")])
-        self.transformer = _Transformer()
+        self.transformer = _Transformer(bf16_compute)
         self.adapter_1 = Conv2dNorm(in_channels["res2"], d, 1, bias=False)
         self.layer_1 = Conv2dNorm(d, d, 3, padding=1, bias=False)
         self.mask_features = nn.Conv2d(d, d, 1)

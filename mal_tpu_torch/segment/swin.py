@@ -1,11 +1,20 @@
 """Swin Transformer backbone of the frozen Mask2Former (PyTorch, NHWC).
 
-Counterpart of `mal_tpu.segment.swin` on its unfused path (`swin.py:250-271`,
-the one that runs in exact fp32): patch embedding, windowed and shifted-window
-attention with relative-position bias, patch merging and the per-stage
-LayerNorm outputs. The attention core of every block is kernel K4
-(`ops/cuda/window_attention.py`) on CUDA tensors and its plain version on CPU
-tensors. Each stage is a plain loop over its blocks.
+Counterpart of `mal_tpu.segment.swin`: patch embedding, windowed and
+shifted-window attention with relative-position bias, patch merging and the
+per-stage LayerNorm outputs. Each stage is a plain loop over its blocks. A
+block has three forms, all on the same parameters:
+
+- exact fp32 (`swin.py:250-271`), the default: the attention core is kernel
+  K4 (`ops/cuda/window_attention.py`);
+- unfused bf16 (`bf16_compute=True`): every Linear (qkv, proj, fc1, fc2) in
+  bf16 as flax's `nn.Dense(dtype=bfloat16)` computes it, norms and the
+  residual stream in fp32, K4 fed the fp32 cast of the bf16 qkv as the TPU's
+  attention kernel upcasts it;
+- fused (`fused_block=True`, `swin.py:206-248`): the block is kernels K2 and
+  K3 (`ops/cuda/swin_block.py`); with `bf16_compute` the residual stream of
+  the stage is bf16 too (`swin.py:394-396`).
+On CPU tensors every kernel's wrapper takes its plain version.
 
 Module and parameter names are detectron2's `D2SwinTransformer`
 (`mask2former/modeling/backbone/swin.py`), so the state dict has the keys of
@@ -19,6 +28,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mal_tpu_torch.ops import precision
+from mal_tpu_torch.ops.cuda.swin_block import swin_attn_fused, swin_mlp_fused
 from mal_tpu_torch.ops.cuda.window_attention import (relative_position_index,
                                                      window_attention)
 
@@ -67,9 +78,11 @@ def shift_mask(H: int, W: int, ws: int, shift: int, device=None) -> Tensor:
 class WindowAttention(nn.Module):
     """Windowed multi-head self-attention with relative-position bias."""
 
-    def __init__(self, dim: int, num_heads: int, window_size: int):
+    def __init__(self, dim: int, num_heads: int, window_size: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
         self.num_heads = num_heads
+        self.compute_dtype = compute_dtype
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -79,44 +92,59 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: Tensor, mask: Tensor | None = None) -> Tensor:
         """x (nW, N, C) windows; mask (nm, N, N) or None."""
-        out = window_attention(self.qkv(x), self.relative_position_bias_table,
+        dt = self.compute_dtype
+        qkv = precision.linear(self.qkv, x, dt)
+        out = window_attention(qkv.float(), self.relative_position_bias_table,
                                mask, self.num_heads)
-        return self.proj(out)
+        return precision.linear(self.proj, out, dt).to(x.dtype)
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int,
+                 compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: Tensor) -> Tensor:
         # exact erf GELU, as torch's nn.GELU and mal_tpu (`swin.py:269`)
-        return self.fc2(F.gelu(self.fc1(x)))
+        dt = self.compute_dtype
+        y = F.gelu(precision.linear(self.fc1, x, dt))
+        return precision.linear(self.fc2, y, dt).to(x.dtype)
 
 
 class SwinBlock(nn.Module):
-    """One Swin block; `shifted` selects the SW-MSA form."""
+    """One Swin block; `shifted` selects the SW-MSA form, `compute_dtype`
+    (None or bfloat16) the type of its Linears, `fused` the K2 + K3 form."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 shifted: bool):
+                 shifted: bool, compute_dtype: torch.dtype | None = None,
+                 fused: bool = False):
         super().__init__()
         self.window_size = window_size
         self.shifted = shifted
+        self.compute_dtype = compute_dtype
+        self.fused = fused
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = WindowAttention(dim, num_heads, window_size)
+        self.attn = WindowAttention(dim, num_heads, window_size, compute_dtype)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, MLP_RATIO * dim)
+        self.mlp = Mlp(dim, MLP_RATIO * dim, compute_dtype)
 
-    def forward(self, x: Tensor, mask: Tensor | None, shift: int) -> Tensor:
+    def forward(self, x: Tensor, mask: Tensor | None, shift: int,
+                valid: Tensor | None = None) -> Tensor:
         """x (B, H, W, C). Pads to window multiples *after* norm1, as the
         reference does: the pad tokens are zero vectors that still act as
-        keys. `mask` and `shift` come from the stage: the roll applies only
-        when the padded map is larger than one window."""
+        keys. `mask`, `shift` and `valid` come from the stage: the roll
+        applies only when the padded map is larger than one window, and
+        `valid` (Hp, Wp), 1 on real tokens, is what the fused form zeroes
+        the pad tokens by."""
         B, H, W, C = x.shape
         ws = self.window_size
         Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
         roll = shift if self.shifted else 0
+        if self.fused:
+            return self._forward_fused(x, mask if roll else None, roll, valid)
         y = self.norm1(x)
         if (Hp, Wp) != (H, W):
             y = F.pad(y, (0, 0, 0, Wp - W, 0, Hp - H))
@@ -129,33 +157,74 @@ class SwinBlock(nn.Module):
         x = x + y[:, :H, :W]
         return x + self.mlp(self.norm2(x))
 
+    def _forward_fused(self, x: Tensor, mask: Tensor | None, roll: int,
+                       valid: Tensor) -> Tensor:
+        """The block as K2 and K3 (`mal_tpu/segment/swin.py:206-248`): pad
+        and roll the *stream* and `valid`, K2 (which normalises inside and
+        zeroes the pad tokens), un-roll, crop, add the residual in the
+        stream's type, K3."""
+        B, H, W, C = x.shape
+        Hp, Wp = valid.shape
+        xr = x
+        if (Hp, Wp) != (H, W):
+            xr = F.pad(xr, (0, 0, 0, Wp - W, 0, Hp - H))
+        if roll:
+            xr = torch.roll(xr, (-roll, -roll), dims=(1, 2))
+            valid = torch.roll(valid, (-roll, -roll), dims=(0, 1))
+        dt = self.compute_dtype or torch.float32
+        a = self.attn
+        y = swin_attn_fused(
+            xr, valid, self.norm1.weight, self.norm1.bias, a.qkv.weight,
+            a.qkv.bias, a.relative_position_bias_table, mask, a.proj.weight,
+            a.proj.bias, window_size=self.window_size, num_heads=a.num_heads,
+            compute_dtype=dt)
+        if roll:
+            y = torch.roll(y, (roll, roll), dims=(1, 2))
+        x = x + y[:, :H, :W]
+        out = swin_mlp_fused(
+            x.reshape(-1, C), self.norm2.weight, self.norm2.bias,
+            self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
+            self.mlp.fc2.bias, compute_dtype=dt)
+        return out.reshape(B, H, W, C)
+
 
 class BasicLayer(nn.Module):
     """One resolution stage: blocks alternating W-MSA / SW-MSA, then the
     patch merging (absent after the last stage)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
-                 downsample: bool):
+                 downsample: bool, compute_dtype: torch.dtype | None = None,
+                 fused: bool = False):
         super().__init__()
         self.window_size = window_size
+        self.fused = fused
         self.blocks = nn.ModuleList([
-            SwinBlock(dim, num_heads, window_size, shifted=b % 2 == 1)
+            SwinBlock(dim, num_heads, window_size, shifted=b % 2 == 1,
+                      compute_dtype=compute_dtype, fused=fused)
             for b in range(depth)])
-        self.downsample = PatchMerging(dim) if downsample else None
+        # the merging reduces in bf16 only on a bf16 stream (`swin.py:407-408`)
+        self.downsample = (PatchMerging(dim, compute_dtype if fused else None)
+                           if downsample else None)
 
     def forward(self, x: Tensor) -> Tensor:
         ws = self.window_size
-        Hp, Wp = -(-x.shape[1] // ws) * ws, -(-x.shape[2] // ws) * ws
+        H, W = x.shape[1:3]
+        Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
         shift = ws // 2 if min(Hp, Wp) > ws else 0     # `swin.py:203`
         mask = shift_mask(Hp, Wp, ws, shift, x.device) if shift else None
+        valid = None
+        if self.fused:
+            valid = F.pad(torch.ones((H, W), device=x.device),
+                          (0, Wp - W, 0, Hp - H))
         for block in self.blocks:
-            x = block(x, mask, shift)
+            x = block(x, mask, shift, valid)
         return x
 
 
 class PatchMerging(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, compute_dtype: torch.dtype | None = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
@@ -163,7 +232,10 @@ class PatchMerging(nn.Module):
         # the official channel order [(0,0), (1,0), (0,1), (1,1)]
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
                        x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
-        return self.reduction(self.norm(x))
+        # the norm is fp32 whatever the stream's type, as flax's LayerNorm
+        # with fp32 parameters returns it
+        return precision.linear(self.reduction, self.norm(x.float()),
+                                self.compute_dtype)
 
 
 class PatchEmbed(nn.Module):
@@ -178,15 +250,25 @@ class PatchEmbed(nn.Module):
 
 
 class SwinTransformer(nn.Module):
-    """Returns {"res2", "res3", "res4", "res5"}, each (B, h, w, C)."""
+    """Returns {"res2", "res3", "res4", "res5"}, each (B, h, w, C) fp32.
 
-    def __init__(self, size: str = "large"):
+    `bf16_compute` runs every Linear of the blocks in bf16 (parameters stay
+    fp32); `fused_block` runs each block as kernels K2 and K3, and with both
+    on the residual stream between the kernels is bf16 as well. The
+    per-stage output norms are fp32 in every mode (`swin.py:404-405`).
+    """
+
+    def __init__(self, size: str = "large", bf16_compute: bool = False,
+                 fused_block: bool = False):
         super().__init__()
         embed_dim, depths, heads, ws = CONFIGS[size]
+        cdt = torch.bfloat16 if bf16_compute else None
+        self.bf16_stream = bf16_compute and fused_block
         self.patch_embed = PatchEmbed(embed_dim)
         self.layers = nn.ModuleList([
             BasicLayer(embed_dim * 2 ** s, depths[s], heads[s], ws,
-                       downsample=s < 3) for s in range(4)])
+                       downsample=s < 3, compute_dtype=cdt, fused=fused_block)
+            for s in range(4)])
         for s in range(4):
             self.add_module(f"norm{s}", nn.LayerNorm(embed_dim * 2 ** s,
                                                      eps=LN_EPS))
@@ -199,8 +281,10 @@ class SwinTransformer(nn.Module):
         y = self.patch_embed(x)
         outs = {}
         for s, layer in enumerate(self.layers):
+            if self.bf16_stream:
+                y = y.to(torch.bfloat16)
             y = layer(y)
-            outs[f"res{s + 2}"] = getattr(self, f"norm{s}")(y)
+            outs[f"res{s + 2}"] = getattr(self, f"norm{s}")(y.float())
             if layer.downsample is not None:
                 y = layer.downsample(y)
         return outs

@@ -114,14 +114,23 @@ def generate_dynamic_instance(mask_last: Tensor, mask_next: Tensor,
 
 def image_synthesis(warped_last: Tensor, warped_next: Tensor,
                     inst_cur: Instances, inst_last: Instances,
-                    inst_next: Instances, score_thresh: float = 0.5):
+                    inst_next: Instances, score_thresh: float = 0.5,
+                    payload_dtype: torch.dtype | None = None):
     """Batch temporal-hint synthesis (`dyn_utils.py:121-170`).
 
     warped_*: (B, C, H, W) warped adjacent frames of the photometric path;
     inst_cur: the current frame's instances; inst_last / inst_next: the
     instances of the *warped* adjacent frames. Returns (syn_last, syn_next,
     has_ins), has_ins (B,) bool.
+
+    `payload_dtype=torch.bfloat16` (fast mode, `mal_tpu/temporal.py:151-176`)
+    moves the frames through the per-instance shifts in bf16; the results
+    come back in the frames' own type, and gradients flow through the casts.
     """
+    out_dtype = warped_last.dtype
+    if payload_dtype is not None:
+        warped_last = warped_last.to(payload_dtype)
+        warped_next = warped_next.to(payload_dtype)
     cur = inst_cur.threshold(score_thresh)
     last_idx, next_idx, pair_valid = match_instances(inst_last, inst_next, cur)
     pv = (pair_valid & cur.valid)[:, :, None, None]
@@ -136,5 +145,5 @@ def image_synthesis(warped_last: Tensor, warped_next: Tensor,
         warped_last, warped_next)
     has = pv.flatten(1).any(1)
     keep = has[:, None, None, None]
-    return (torch.where(keep, syn_l, warped_last),
-            torch.where(keep, syn_n, warped_next), has)
+    return (torch.where(keep, syn_l, warped_last).to(out_dtype),
+            torch.where(keep, syn_n, warped_next).to(out_dtype), has)

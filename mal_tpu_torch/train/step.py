@@ -7,6 +7,12 @@ temporal hint (frames synthesized from the frozen segmenter's instances,
 Adam update (with the BN statistics updated by the forward) and the
 adaptive depth-bin EMA (`manydepth/trainer.py:449-644`).
 
+Fast mode (`compute_dtype="bfloat16"`, `mal_tpu.config.TRAIN_FAST_SETTINGS`):
+the depth and pose nets compute in bf16 on fp32 parameters
+(`models/mal_model.py`), the warped frames carry a bf16 *payload* with fp32
+coordinates and weights, and the synthesis moves its frames in bf16. The
+losses, the optimizer, the depth bins and the balancer stay fp32.
+
 Random draws: the matching augmentation's uniform draw and the automask
 tie-break noise come from `generator`, or are passed in `draws` so that a
 test can feed both packages the same numbers.
@@ -23,6 +29,7 @@ from mal_tpu_torch.config import Config
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.models.mal_model import MALModel, to_nchw
 from mal_tpu_torch.ops.interp import grid_sample
+from mal_tpu_torch.ops.precision import compute_dtype_of
 from mal_tpu_torch.temporal import image_synthesis
 from mal_tpu_torch.train.lr_schedule import warmup_step_schedule
 from mal_tpu_torch.train.state import TrainState, apply_gradients
@@ -36,7 +43,6 @@ def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
     unported = {
         "method != 'manydepth'": cfg.method != "manydepth",
         "pareto": cfg.distil and cfg.pareto,
-        "compute_dtype='bfloat16'": cfg.compute_dtype != "float32",
         "remat": cfg.remat,
         "loss_pct": cfg.loss_pct,
         "num_depth_shards > 1": cfg.num_depth_shards > 1,
@@ -49,11 +55,7 @@ def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
         raise NotImplementedError(
             "seg_cache_root: the precomputed instance cache waits for the "
             "port of the host loop and its I/O")
-    if cfg.seg_fused_swin:
-        raise NotImplementedError(
-            "seg_fused_swin=True: the fused Swin blocks need kernels K2 / K3 "
-            "(swin_attn_fused, swin_mlp_fused), which wait for the bf16 "
-            "fast-mode slice")
+    compute_dtype_of(cfg.compute_dtype)   # raises on an unknown type
     if (cfg.temporal or cfg.main_temporal) and seg_fn is None:
         raise ValueError("cfg.temporal requires a segmentation seg_fn")
     if cfg.learn_ens:
@@ -65,8 +67,15 @@ def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
 def _all_photometric_warps(cfg: Config, batch: dict, outputs: dict,
                            depth_specs) -> list[list[Tensor]]:
     """Warped adjacent frames for each (depth (B, 1, H, W), detach_T) spec,
-    sharing one back-projection per depth (`step.py:56-86`)."""
+    sharing one back-projection per depth (`step.py:56-86`).
+
+    In fast mode the frames are sampled from their bf16 roundings while the
+    coordinates, the bilinear weights and the result stay fp32
+    (`mal_tpu/train/step.py:67-84`). `F.grid_sample` takes one type for
+    frame and grid, so the rounded frame is read back as fp32: the numbers
+    of `mal_tpu`'s bf16 gather, without its halved traffic."""
     B, _, H, W = batch["color"]["0"].shape
+    payload = compute_dtype_of(cfg.compute_dtype)
     out = []
     for depth, detach in depth_specs:
         points = geometry.backproject(depth, batch["inv_K"], H, W)
@@ -76,8 +85,10 @@ def _all_photometric_warps(cfg: Config, batch: dict, outputs: dict,
             if detach:
                 T = T.detach()
             grid = geometry.project_3d(points, batch["K"], T, H, W)
-            warped.append(grid_sample(batch["color"][str(f)], grid,
-                                      padding_mode="border"))
+            frame = batch["color"][str(f)]
+            if payload is not None:
+                frame = frame.to(payload).float()
+            warped.append(grid_sample(frame, grid, padding_mode="border"))
         out.append(warped)
     return out
 
@@ -109,9 +120,10 @@ def make_loss_fn(cfg: Config, model: MALModel,
         Returns the two frames and the (B,) items with a matched pair."""
         inst_last, inst_next = (seg_fn(w.detach().permute(0, 2, 3, 1))
                                 for w in warped)
-        syn_l, syn_n, has = image_synthesis(warped[0], warped[1], inst_cur,
-                                            inst_last, inst_next,
-                                            cfg.ins_threshold)
+        syn_l, syn_n, has = image_synthesis(
+            warped[0], warped[1], inst_cur, inst_last, inst_next,
+            cfg.ins_threshold,
+            payload_dtype=compute_dtype_of(cfg.compute_dtype))
         return [syn_l, syn_n], has
 
     def loss_fn(batch: dict, min_d: Tensor, max_d: Tensor,

@@ -94,3 +94,68 @@ def torch_cfg(cfg: Config):
     from mal_tpu_torch.config import Config as TorchConfig
 
     return TorchConfig(**cfg.__dict__)
+
+
+# --------------------------------------------------------------------------
+# bf16 comparisons (tests/test_torch_fast_mode.py says why they come in two
+# kinds)
+# --------------------------------------------------------------------------
+
+SHARE = 0.2        # one layer, given mal_tpu's own bf16 input
+END_TO_END = 1.5   # whole networks: sqrt(2), two independent bf16 runs, and a margin
+
+
+def as_f32(x) -> np.ndarray:
+    """A torch tensor or a jax array of any float type as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).numpy()
+    return np.array(jnp.asarray(x, jnp.float32))
+
+
+def as_torch(x, dtype=torch.float32, channels_first=False) -> torch.Tensor:
+    """A jax or numpy array as a torch tensor of `dtype` (exact for a bf16
+    array read as bf16), NHWC -> NCHW on request."""
+    a = as_f32(x)
+    return torch.from_numpy(nchw(a) if channels_first else a).to(dtype)
+
+
+def check_bf16(got, want, exact, atol, rtol=0.0, share=SHARE, what=""):
+    """`got` (the port in bf16) against `want` (mal_tpu in bf16): elementwise
+    within `atol` + `rtol` |want|, and on average within `share` of the mean
+    distance of `want` from `exact`, an fp32 result on the same input, which
+    must be there."""
+    got, want, exact = as_f32(got), as_f32(want), as_f32(exact)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol, err_msg=what)
+    mode_gap = np.abs(want - exact).mean()
+    assert mode_gap > 0, what          # bf16 and fp32 do differ here
+    mean = np.abs(got - want).mean()
+    assert mean <= share * mode_gap, (what, mean / mode_gap, mean, mode_gap)
+
+
+def random_mal_variables(cfg: Config, seed: int = 0):
+    """Random (params, batch_stats) on the shapes of `mal_tpu`'s MALModel
+    tree, as numpy, without running or compiling its initialisers: kernels
+    normal at 1 / sqrt(fan_in), scales near 1, biases and running means
+    small, running variances near 1."""
+    from mal_tpu.models import MALModel as JaxMALModel
+
+    batch = to_jax(np_batch(cfg, seed, batch_size=1))
+    shapes = jax.eval_shape(
+        lambda r, b: JaxMALModel(cfg).init(
+            {"params": r}, b, jnp.asarray(0.1), jnp.asarray(10.0), r,
+            train=True), jax.random.PRNGKey(0), batch)
+    rng = np.random.RandomState(seed)
+
+    def draw(path, s):
+        name = path[-1].key
+        r = rng.randn(*s.shape)
+        if name == "kernel":
+            a = r / np.sqrt(np.prod(s.shape[:-1]))
+        elif name in ("scale", "var"):
+            a = 1.0 + 0.1 * np.abs(r)
+        else:                      # bias, mean
+            a = 0.1 * r
+        return a.astype(np.float32)
+
+    tree = jax.tree_util.tree_map_with_path(draw, shapes)
+    return tree["params"], tree["batch_stats"]

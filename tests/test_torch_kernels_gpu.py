@@ -14,6 +14,7 @@ import torch
 from mal_tpu_torch.ops.cost_volume import compute_depth_bins, plane_sweep_terms
 from mal_tpu_torch.ops.cuda import cost_volume_kernel as tk
 from mal_tpu_torch.ops.cuda import deform_sample as k5
+from mal_tpu_torch.ops.cuda import swin_block as k23
 from mal_tpu_torch.ops.cuda import window_attention as k4
 from mal_tpu_torch.segment.swin import shift_mask
 
@@ -142,3 +143,159 @@ def test_k5_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         k5.ms_deform_attn_core(value.double(), [(2, 3)], locs, aw)
     with pytest.raises(ValueError, match="is on"):
         k5.ms_deform_attn_core(value, [(2, 3)], locs.cpu(), aw)
+
+
+def _block_params(C, heads, ws, hidden, seed):
+    """Seeded K2 / K3 parameters in nn.Linear's layout."""
+    rng = np.random.RandomState(seed)
+
+    def t(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy(
+            (shift + scale * rng.randn(*shape)).astype(np.float32))
+
+    return {"ln_s": t(C, scale=0.1, shift=1.0), "ln_b": t(C, scale=0.1),
+            "wqkv": t(3 * C, C, scale=C ** -0.5), "bqkv": t(3 * C, scale=0.1),
+            "table": t((2 * ws - 1) ** 2, heads, scale=0.5),
+            "wproj": t(C, C, scale=C ** -0.5), "bproj": t(C, scale=0.1),
+            "w1": t(hidden, C, scale=C ** -0.5), "b1": t(hidden, scale=0.1),
+            "w2": t(C, hidden, scale=hidden ** -0.5), "b2": t(C, scale=0.1)}
+
+
+def _close_in(dtype, out, plain):
+    """fp32: sums in another order and erff against torch.erf, on outputs
+    of O(1). bf16: both round at the same places, so an output moves by an
+    ulp or two (2^-8 of its binade) where an fp32 sum in another order
+    crosses a rounding boundary, and on average hardly at all."""
+    assert out.dtype == plain.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, rtol=0, atol=2e-4)
+    else:
+        torch.testing.assert_close(out.float(), plain.float(), rtol=2 ** -6,
+                                   atol=2 ** -6)
+        assert (out.float() - plain.float()).abs().mean().item() <= 3e-4
+
+
+# (B, H, W, C, heads, window, shifted): Swin-T's window on a padded map with
+# a ragged row count, Swin-L's on a shifted and padded one, a wide block on
+# a map one window high, and a window size the tensor-core attention core is
+# not built for (in bf16 it takes the fp32 loop)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,heads,ws,shifted", [
+    (3, 16, 24, 96, 3, 7, True), (2, 24, 40, 192, 6, 12, True),
+    (2, 6, 20, 768, 24, 12, False), (2, 10, 13, 64, 2, 5, True)])
+def test_k2_matches_plain_version(cuda, B, H, W, C, heads, ws, shifted, dtype):
+    p = {k: v.to(cuda) for k, v in _block_params(C, heads, ws, 4 * C, C).items()}
+    Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
+    x = torch.from_numpy(np.random.RandomState(H).randn(B, H, W, C)
+                         .astype(np.float32)).to(cuda)
+    xr = torch.nn.functional.pad(x, (0, 0, 0, Wp - W, 0, Hp - H))
+    valid = torch.nn.functional.pad(torch.ones(H, W, device=cuda),
+                                    (0, Wp - W, 0, Hp - H))
+    mask = None
+    if shifted:
+        xr = torch.roll(xr, (-ws // 2, -ws // 2), dims=(1, 2))
+        valid = torch.roll(valid, (-ws // 2, -ws // 2), dims=(0, 1))
+        mask = shift_mask(Hp, Wp, ws, ws // 2, cuda)
+    args = (xr.to(dtype).contiguous(), valid.contiguous(), p["ln_s"],
+            p["ln_b"], p["wqkv"], p["bqkv"], p["table"], mask, p["wproj"],
+            p["bproj"])
+    kwargs = dict(window_size=ws, num_heads=heads, compute_dtype=dtype)
+    before = k23.swin_attn_fused.launches
+    out = k23.swin_attn_fused(*args, **kwargs)
+    assert k23.swin_attn_fused.launches == before + 1
+    plain = k23.swin_attn_reference(*args, **kwargs)
+    torch.cuda.synchronize()
+    _close_in(dtype, out, plain)
+
+
+# (tokens, C): a ragged token count, a row count below one tile, Swin-L's
+# widest block
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens,C", [(1000, 96), (77, 192), (300, 1536)])
+def test_k3_matches_plain_version(cuda, tokens, C, dtype):
+    p = {k: v.to(cuda) for k, v in _block_params(C, 1, 1, 4 * C, C).items()}
+    x = torch.from_numpy(np.random.RandomState(C).randn(tokens, C)
+                         .astype(np.float32)).to(cuda).to(dtype)
+    args = (x, p["ln_s"], p["ln_b"], p["w1"], p["b1"], p["w2"], p["b2"])
+    before = k23.swin_mlp_fused.launches
+    out = k23.swin_mlp_fused(*args, compute_dtype=dtype)
+    assert k23.swin_mlp_fused.launches == before + 1
+    plain = k23.swin_mlp_reference(*args, compute_dtype=dtype)
+    torch.cuda.synchronize()
+    _close_in(dtype, out, plain)
+
+
+def test_k2_k3_with_an_fp32_stream_and_bf16_products(cuda):
+    """The third combination the kernels take: an fp32 stream with the bf16
+    compute type (a fused block called outside a bf16 stage)."""
+    C, heads, ws = 96, 3, 7
+    p = {k: v.to(cuda) for k, v in _block_params(C, heads, ws, 4 * C, 3).items()}
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 14, 21, C)
+                         .astype(np.float32)).to(cuda)
+    valid = torch.ones(14, 21, device=cuda)
+    args = (x, valid, p["ln_s"], p["ln_b"], p["wqkv"], p["bqkv"], p["table"],
+            None, p["wproj"], p["bproj"])
+    kwargs = dict(window_size=ws, num_heads=heads, compute_dtype=torch.bfloat16)
+    out = k23.swin_attn_fused(*args, **kwargs)
+    plain = k23.swin_attn_reference(*args, **kwargs)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, plain, rtol=2 ** -6, atol=2 ** -6)
+    args = (x.reshape(-1, C), p["ln_s"], p["ln_b"], p["w1"], p["b1"], p["w2"],
+            p["b2"])
+    out = k23.swin_mlp_fused(*args, compute_dtype=torch.bfloat16)
+    plain = k23.swin_mlp_reference(*args, compute_dtype=torch.bfloat16)
+    torch.testing.assert_close(out, plain, rtol=2 ** -6, atol=2 ** -6)
+
+
+def test_k2_k3_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    C, heads, ws = 96, 3, 7
+    p = {k: v.to(cuda) for k, v in _block_params(C, heads, ws, 4 * C, 1).items()}
+    x = torch.zeros(1, 14, 14, C, device=cuda)
+    valid = torch.ones(14, 14, device=cuda)
+
+    def attn(x=x, valid=valid, heads=heads, dt=torch.float32, **over):
+        q = dict(p, **over)
+        return k23.swin_attn_fused(
+            x, valid, q["ln_s"], q["ln_b"], q["wqkv"], q["bqkv"], q["table"],
+            None, q["wproj"], q["bproj"], window_size=ws, num_heads=heads,
+            compute_dtype=dt)
+
+    with pytest.raises(TypeError, match="bfloat16 stream"):
+        attn(x=x.bfloat16())
+    with pytest.raises(TypeError, match="compute_dtype"):
+        attn(dt=torch.float16)
+    with pytest.raises(ValueError, match="heads"):
+        attn(heads=2)
+    with pytest.raises(ValueError, match="tile"):
+        attn(x=x[:, :13].contiguous(), valid=valid[:13].contiguous())
+    with pytest.raises(TypeError, match="wqkv"):
+        attn(wqkv=p["wqkv"].bfloat16())
+    with pytest.raises(ValueError, match="is on"):
+        attn(valid=valid.cpu())
+    with pytest.raises(ValueError, match="multiples"):
+        k23.swin_mlp_fused(torch.zeros(8, 48, device=cuda), p["ln_s"][:48],
+                           p["ln_b"][:48], p["w1"][:, :48].contiguous(),
+                           p["b1"], p["w2"][:48].contiguous(), p["b2"][:48])
+
+
+@pytest.mark.parametrize("G,T,S,ch,shapes", [
+    (3, 2, 300, 8, ((2, 3), (3, 5), (6, 10))),
+    (16, 1, 2048, 32, ((6, 20), (12, 40), (24, 80)))])
+def test_k5b_matches_plain_version(cuda, G, T, S, ch, shapes):
+    rng = np.random.RandomState(S)
+    vms = [torch.from_numpy(rng.randn(G, h * ch, w).astype(np.float32)).to(cuda)
+           for h, w in shapes]
+    x, y = (torch.from_numpy(rng.uniform(-0.2, 1.2, (G, T, 3, S))
+                             .astype(np.float32)).to(cuda) for _ in range(2))
+    aw = torch.from_numpy(rng.uniform(0, 1, (G, T, 3, S))
+                          .astype(np.float32)).to(cuda)
+    before = k5.deform_sample_fused.launches
+    out = k5.deform_sample_fused(*vms, x, y, aw, shapes, ch)
+    assert k5.deform_sample_fused.launches == before + 1
+    plain = k5.deform_sample_fused_reference(*vms, x, y, aw, shapes, ch)
+    torch.cuda.synchronize()
+    # x * w - 0.5 contracted into one rounding in the kernel moves a
+    # coordinate by an ulp, and a bilinear weight with it, on values of O(1)
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="level values"):
+        k5.deform_sample_fused(vms[1], vms[1], vms[2], x, y, aw, shapes, ch)

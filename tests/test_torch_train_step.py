@@ -31,6 +31,8 @@ from mal_tpu.train.state import make_optimizer as jax_make_optimizer
 from mal_tpu.train.step import make_train_step as jax_make_train_step
 from mal_tpu_torch.convert.jax_params import (flax_to_state_dict,
                                               load_jax_variables)
+from mal_tpu_torch.config import TRAIN_FAST_SETTINGS
+from mal_tpu_torch.segment.mask2former import resolve_fused_swin
 from mal_tpu_torch.train.state import create_train_state
 from mal_tpu_torch.train.step import make_train_step
 
@@ -264,10 +266,8 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"temporal": True, "seg_cache_root": "cache"},
-    {"main_temporal": True, "seg_fused_swin": True}, {"pareto": True},
-    {"compute_dtype": "bfloat16"}, {"method": "dynamicdepth"},
-    {"learn_ens": True}, {"remat": True}])
+    {"temporal": True, "seg_cache_root": "cache"}, {"pareto": True},
+    {"method": "dynamicdepth"}, {"learn_ens": True}, {"remat": True}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         make_train_step(torch_cfg(CFG).replace(**option), device="cpu",
@@ -275,12 +275,37 @@ def test_unported_options_raise(option):
 
 
 @pytest.mark.parametrize("option,waits_for", [
-    ({"seg_cache_root": "cache"}, "host loop"),
-    ({"seg_fused_swin": True}, "K2 / K3")])
+    ({"seg_cache_root": "cache"}, "host loop")])
 def test_unported_segmenter_options_say_what_they_wait_for(option, waits_for):
     cfg = torch_cfg(CFG).replace(temporal=True, **option)
     with pytest.raises(NotImplementedError, match=waits_for):
         make_train_step(cfg, device="cpu", seg_fn=lambda images: None)
+
+
+@pytest.mark.parametrize("option", [
+    {"compute_dtype": "bfloat16"},
+    {"main_temporal": True, "seg_fused_swin": True},
+    {"temporal": True, **TRAIN_FAST_SETTINGS}])
+def test_fast_mode_options_are_accepted(option):
+    """The fast mode's switches, which an earlier slice refused."""
+    step = make_train_step(torch_cfg(CFG).replace(**option), device="cpu",
+                           seg_fn=lambda images: None)
+    assert callable(step)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        make_train_step(torch_cfg(CFG).replace(compute_dtype="float16"),
+                        device="cpu")
+
+
+@pytest.mark.parametrize("option,want", [
+    ({}, False),                                    # exact mode: off
+    (TRAIN_FAST_SETTINGS, False),                   # auto, but on the CPU
+    ({"seg_fused_swin": True}, True),               # set: on, in fp32 too
+    ({"seg_fused_swin": False, **TRAIN_FAST_SETTINGS}, False)])
+def test_resolve_fused_swin(option, want):
+    """Auto turns the fused Swin blocks on only in fast mode on a CUDA
+    device; a set value wins."""
+    cfg = torch_cfg(CFG).replace(**option)
+    assert resolve_fused_swin(cfg, "cpu") is want
 
 
 def test_temporal_needs_a_segmenter():
