@@ -10,8 +10,11 @@ Phases, each of which must pass or the script exits non-zero:
 3. each kernel against its plain PyTorch version at shapes of the main
    paths, with both times, its bound and, where one PyTorch call computes
    the same function, that call's time: K1 (`plane_sweep_diffs`, BF=12,
-   D=96, 48x160x64), K2 (`swin_attn_fused`) and K3 (`swin_mlp_fused`) at
-   Swin-L stage 0 (shifted, 160 -> 168 padding, 56-window mask) and stage 3
+   D=96, 48x160x64), K6 (`plane_sweep_diffs_occ`, DynamicDepth's
+   occlusion-aware volume, BF=14, D=96, 48x128x64, with black patches in
+   the occlusion masks and the substitution on for some frames: also 0
+   flipped occlusion decisions), K2 (`swin_attn_fused`) and K3
+   (`swin_mlp_fused`) at Swin-L stage 0 (shifted, 160 -> 168 padding, 56-window mask) and stage 3
    (C = 1536) in bf16 and fp32, beside the port's unfused bf16 block, K4
    (`window_attention`, stage 0), K5 (`ms_deform_attn_core`, batch 12, 2520
    queries, 8 heads of 32, levels 6x20 / 12x40 / 24x80, 4 points) and K5b
@@ -19,6 +22,8 @@ Phases, each of which must pass or the script exits non-zero:
 4. small-input references, GPU against CPU (the plain PyTorch path): one
    training step and one `eval_forward` at 64x96; one temporal step at
    64x96 with a Swin-T Mask2Former; the same temporal step in fast mode;
+   one DynamicDepth step and one eval forward at 64x96 (the loss, and the
+   share of DOMD pixels that differ);
 5. the path without the temporal hint: `create_train_state`, N training
    steps at `Config()` (192x640, batch 12, 96 depth bins, ResNet-18, fp32)
    on a seeded synthetic batch and one `eval_forward`;
@@ -26,12 +31,17 @@ Phases, each of which must pass or the script exits non-zero:
    with the full-width Swin-L Mask2Former (seeded random weights; the
    lowered threshold makes matching and synthesis work on every item), N
    steps and one `eval_forward`;
-7. this slice's main path, the fast mode: `Config(temporal=True,
+7. the hint in fast mode: `Config(temporal=True,
    ins_threshold=0.0, **TRAIN_FAST_SETTINGS)` with `Mask2Former(
    bf16_backbone=True, fused_swin=True)`, N steps and one `eval_forward`,
    then the segmenter forward timed fused bf16, unfused bf16 and fp32, and
-   the share of mask bits on which the fast segmenter leaves the fp32 one.
-Phases 5 to 7 each set every kernel's launch count to 0 just before they
+   the share of mask bits on which the fast segmenter leaves the fp32 one;
+8. the DynamicDepth path (`benchmarks/bench_methods.py:59-61`):
+   `Config(height=192, width=512, batch_size=14, method="dynamicdepth",
+   cv_min=True, cv_set_1=True, cv_pool_th=0.15)` on a seeded batch with
+   `synthetic_doj_masks`, N steps and one eval forward, in fp32 and then
+   with `**TRAIN_FAST_SETTINGS`: K6 = steps + evals, K1-K5 = 0.
+Phases 5 to 8 each set every kernel's launch count to 0 just before they
 run and read the counts just after; each kernel must have launched exactly
 as often as its path calls it (phase 7: K2 = K3 = 72 per step, K4 = 0), and
 at least once on some path. K5b is exempt: nothing calls it, in `mal_tpu`
@@ -59,6 +69,16 @@ PEAK_FP32_FLOPS = 67e12
 
 K1_ATOL = 3e-5          # as tests/test_pallas_cv.py holds K1 on the TPU side
 K1_MAX_FLIPS = 0        # kernel and plain version share x, y to the bit
+# K6: as K1; the warped occlusion mask is summed in one order by both, so
+# no occlusion decision may flip either
+K6_ATOL = 3e-5
+K6_MAX_FLIPS = 0
+# the small DynamicDepth reference, GPU against CPU: cuDNN's and the CPU's
+# convolutions sum in other orders, and the DOMD splat truncates each
+# projected point to a pixel, so a point within ~1e-6 of a pixel edge may
+# land next door on one side
+DYN_LOSS_RTOL = 1e-3
+DYN_MAX_DOMD_SHARE = 1e-3   # share of DOMD frame values off by more than 1e-4
 # K4: outputs of O(1); the kernel's online softmax and 32-wide dot products
 # round in another order than the plain version's matmuls
 K4_ATOL = 2e-5
@@ -95,6 +115,9 @@ FAST_LOSS_RTOL = 2e-2
 FAST_VS_FP32_MAX_BIT_FLIPS = 0.25
 PEAK_BF16_FLOPS = 989e12   # H100 SXM tensor cores, dense
 SOURCES = ["plane_sweep", "window_attention", "deform_sample", "swin_block"]
+# DynamicDepth's benchmark configuration (`benchmarks/bench_methods.py:59-61`)
+DYNAMIC = dict(height=192, width=512, batch_size=14, method="dynamicdepth",
+               cv_min=True, cv_set_1=True, cv_pool_th=0.15)
 
 
 class SmokeFailure(RuntimeError):
@@ -210,6 +233,86 @@ def k1_phase() -> dict:
             "library_ms": None}
 
 
+def k6_phase() -> dict:
+    """K6 at DynamicDepth's shape: BF = 14, D = 96, 48x128x64, K1's poses,
+    occlusion masks with black patches, the substitution on for about
+    two thirds of the frames, pool_th 0.15."""
+    import numpy as np
+    import torch
+
+    from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
+        plane_sweep_diffs_occ, plane_sweep_diffs_occ_reference)
+
+    pool_th = DYNAMIC["cv_pool_th"]
+    cur, lookup, M, t, bins = k1_inputs(BF=14, w=128, seed=1)
+    BF, h, w, C = cur.shape
+    D = bins.shape[0]
+    rng = np.random.RandomState(2)
+    occ = np.zeros((BF, h, w), np.float32)
+    occ[:, 15:30, 32:80] = 1.0                       # a moved car's hole
+    for b in range(BF):                              # and smaller ones
+        y, x = rng.randint(0, h - 8), rng.randint(0, w - 12)
+        occ[b, y:y + 8, x:x + 12] = 1.0
+    apply_occ = (rng.uniform(0, 1, BF) > 0.33).astype(np.float32)
+    occ, apply_occ = (torch.from_numpy(a).cuda() for a in (occ, apply_occ))
+    args = (cur, lookup, occ, apply_occ, M, t, bins, pool_th)
+    out = plane_sweep_diffs_occ(*args)
+    torch.cuda.synchronize()
+    plain = plane_sweep_diffs_occ_reference(*args)
+    err = (out - plain).abs().max().item()
+    border_flips = ((out == 0) != (plain == 0)).sum().item()
+    # occlusion decisions: where the occluded value (all frames occluded)
+    # and the open one (none) are well apart, which of them each side gave
+    occluded = plane_sweep_diffs_occ_reference(
+        cur, lookup, torch.ones_like(occ), torch.ones_like(apply_occ), M, t,
+        bins, pool_th)
+    open_ = plane_sweep_diffs_occ_reference(
+        cur, lookup, occ, torch.zeros_like(apply_occ), M, t, bins, pool_th)
+    apart = (occluded - open_).abs() > 100 * K6_ATOL
+
+    def chose_occluded(x):
+        return (x - occluded).abs() < (x - open_).abs()
+
+    occ_flips = (apart & (chose_occluded(out) != chose_occluded(plain))).sum().item()
+    inside = (open_ != 0).sum().item()
+    n_occluded = (apart & chose_occluded(plain)).sum().item()
+    print(f"K6 plane_sweep_diffs_occ at BF={BF} D={D} h={h} w={w} C={C}: "
+          f"max_abs_err={err:.3e} (atol {K6_ATOL}) border flips={border_flips}"
+          f" occlusion flips={occ_flips} (max {K6_MAX_FLIPS} each); samples "
+          f"inside the masks {inside} of {out.numel()}, occluded {n_occluded}")
+    check(torch.isfinite(out).all().item(), "K6 output not finite")
+    check(err <= K6_ATOL, f"K6 disagrees with its plain version: {err}")
+    check(border_flips <= K6_MAX_FLIPS, f"K6 flipped {border_flips} border "
+          f"decisions")
+    check(occ_flips <= K6_MAX_FLIPS, f"K6 flipped {occ_flips} occlusion "
+          f"decisions")
+    check(n_occluded > 0 and inside > n_occluded, "K6 check substituted "
+          "nothing or everything")
+
+    ms = cuda_time_ms(lambda: plane_sweep_diffs_occ(*args), 50)
+    plain_ms = cuda_time_ms(lambda: plane_sweep_diffs_occ_reference(*args), 10)
+    n_bytes = 4 * (2 * cur.numel() + occ.numel() + BF + M.numel() + t.numel()
+                   + D + out.numel())
+    # operations this data needs: ~10 per sample for the projection and the
+    # masks; inside them ~15 for the bilinear weights and, where the frame
+    # applies the substitution, ~8 for the warped mask and its test; the
+    # feature gathers (9 per channel) only for the samples not occluded;
+    # and 2 per channel for each pixel's occluded value
+    applied = apply_occ.bool()[:, None, None, None]
+    inside_applied = ((open_ != 0) & applied).sum().item()
+    pixels_applied = int(apply_occ.sum().item()) * h * w
+    n_ops = (10 * out.numel() + 15 * inside + 8 * inside_applied
+             + 9 * C * (inside - n_occluded) + 2 * C * pixels_applied)
+    bound = _bound(n_bytes, n_ops, PEAK_FP32_FLOPS)
+    print(f"K6 time {ms:.4f} ms, plain {plain_ms:.4f} ms; {bound['text']}")
+    return {"name": "plane_sweep_diffs_occ", "route": "cuda",
+            "source": "mal_tpu_torch/csrc/plane_sweep.cu",
+            "replaces": "mal_tpu/ops/pallas/cost_volume_kernel.py:307",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "library_ms": None}
+
+
 def _to(batch: dict, dev: str) -> dict:
     return {k: ({f: v.to(dev) for f, v in x.items()} if isinstance(x, dict)
                 else x.to(dev)) for k, x in batch.items()}
@@ -249,6 +352,50 @@ def small_reference_phase() -> None:
     # moves the loss by far less than 1e-4 of it
     check(abs(l_cpu - l_gpu) <= 1e-4 * abs(l_cpu), "GPU loss != CPU loss")
     check(d_err <= 1e-4, "GPU eval disparity != CPU eval disparity")
+
+
+def small_dynamic_reference_phase() -> None:
+    """One DynamicDepth step and one eval forward at 64x96 (the bench
+    recipe's options, D = 16, B = 2): GPU path (K6) against the CPU's plain
+    path, from the same weights, batch and draws."""
+    import torch
+
+    from mal_tpu_torch.config import Config
+    from mal_tpu_torch.data.synthetic import (synthetic_batch,
+                                              synthetic_doj_masks)
+    from mal_tpu_torch.train.state import create_train_state
+    from mal_tpu_torch.train.step import make_train_step
+
+    cfg = Config(**dict(DYNAMIC, height=64, width=96, batch_size=2,
+                        num_depth_bins=16))
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(3), "cpu")
+    batch.update(synthetic_doj_masks(cfg, "cpu"))
+    B, H, W = 2, cfg.height, cfg.width
+    g = torch.Generator().manual_seed(4)
+    draws = {"matching_aug": torch.tensor([0.9, 0.1]),
+             "automask_noise": torch.randn((B, 1, H, W), generator=g)}
+    res = {}
+    for dev in ("cpu", "cuda"):
+        b = _to(batch, dev)
+        state = create_train_state(cfg, device=dev)
+        step = make_train_step(cfg, device=dev)
+        state, m = step(state, b, 0.0,
+                        draws={k: v.to(dev) for k, v in draws.items()})
+        ev = state.model.eval_forward(b, state.bins.min_depth,
+                                      state.bins.max_depth)
+        res[dev] = (m["loss"].item(), {k: v.cpu() for k, v in ev.items()})
+    (l_cpu, e_cpu), (l_gpu, e_gpu) = res["cpu"], res["cuda"]
+    share = ((e_cpu["domd_color/-1"] - e_gpu["domd_color/-1"]).abs()
+             > 1e-4).float().mean().item()
+    d_err = (e_cpu["disp"] - e_gpu["disp"]).abs().max().item()
+    print(f"small DynamicDepth reference (64x96, B=2, D=16): loss cpu "
+          f"{l_cpu:.6f} gpu {l_gpu:.6f} (rtol {DYN_LOSS_RTOL}); eval DOMD "
+          f"frame values off by > 1e-4: {share:.2e} (max {DYN_MAX_DOMD_SHARE})"
+          f"; eval disparity max abs diff {d_err:.3e}")
+    check(abs(l_cpu - l_gpu) <= DYN_LOSS_RTOL * abs(l_cpu),
+          "GPU DynamicDepth loss != CPU loss")
+    check(share <= DYN_MAX_DOMD_SHARE, "GPU DOMD frames != CPU DOMD frames")
+    check(d_err <= 1e-3, "GPU eval disparity != CPU eval disparity")
 
 
 def k4_phase() -> dict:
@@ -702,15 +849,19 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
     name, the state, the batch)."""
     import torch
 
-    from mal_tpu_torch.data.synthetic import synthetic_batch
+    from mal_tpu_torch.data.synthetic import (synthetic_batch,
+                                              synthetic_doj_masks)
     from mal_tpu_torch.train.state import create_train_state
     from mal_tpu_torch.train.step import make_train_step
 
+    dynamic = cfg.method == "dynamicdepth"
     t0 = time.perf_counter()
     state = create_train_state(cfg)
     step = make_train_step(cfg, seg_fn=seg_fn)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = synthetic_batch(cfg, gen, "cuda")
+    if dynamic:
+        batch.update(synthetic_doj_masks(cfg, "cuda"))
     torch.cuda.synchronize()
     print(f"set-up {time.perf_counter() - t0:.2f} s; tf32 cudnn="
           f"{torch.backends.cudnn.allow_tf32} matmul="
@@ -728,8 +879,9 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
         loss = metrics["loss"].item()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-        print(f"step {i}: loss {loss:.6f}, items with a matched pair "
-              f"{metrics['syn_items'].item():.0f} ({times[-1]:.2f} ms)")
+        pairs = ("" if dynamic else f", items with a matched pair "
+                 f"{metrics['syn_items'].item():.0f}")
+        print(f"step {i}: loss {loss:.6f}{pairs} ({times[-1]:.2f} ms)")
         check(all(torch.isfinite(v).all().item() for v in metrics.values()),
               f"non-finite metrics at step {i}")
         if cfg.temporal:
@@ -744,7 +896,8 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     B, H, W = cfg.batch_size, cfg.height, cfg.width
-    h, w = H // 4, W // 4
+    # MALModel's eval gives the matching maps at 1/4, DynDepthModel's at 1
+    h, w = (H, W) if dynamic else (H // 4, W // 4)
     want = {"disp": (B, H, W, 1), "mono_disp": (B, H, W, 1),
             "lowest_cost": (B, h, w), "consistency_mask": (B, h, w)}
     for k, shape in want.items():
@@ -790,17 +943,20 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
 def main_path_phase(steps: int, profile: bool) -> dict[str, int]:
     """The path without the temporal hint at `Config()`."""
     from mal_tpu_torch.config import Config
-    from mal_tpu_torch.ops.cuda.cost_volume_kernel import plane_sweep_diffs
+    from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
+        plane_sweep_diffs, plane_sweep_diffs_occ)
 
     cfg = Config()
     print(f"path without the temporal hint: Config() {cfg.height}x"
           f"{cfg.width} batch {cfg.batch_size}, {cfg.num_depth_bins} bins, "
           f"ResNet-{cfg.num_layers}, {cfg.compute_dtype}; {steps} steps + "
           f"1 eval")
-    launches, _, _ = run_path(cfg, steps, None, [plane_sweep_diffs],
+    launches, _, _ = run_path(cfg, steps, None,
+                              [plane_sweep_diffs, plane_sweep_diffs_occ],
                               "profile_step" if profile else None)
     check(launches["plane_sweep_diffs"] == steps + 1,
           "K1 launch count != steps + evals")
+    check(launches["plane_sweep_diffs_occ"] == 0, "K6 launched off its path")
     return launches
 
 
@@ -825,7 +981,8 @@ def temporal_path_phase(steps: int, profile: bool, fast: bool) -> dict[str, int]
     import torch
 
     from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
-    from mal_tpu_torch.ops.cuda.cost_volume_kernel import plane_sweep_diffs
+    from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
+        plane_sweep_diffs, plane_sweep_diffs_occ)
     from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
     from mal_tpu_torch.ops.cuda.swin_block import (swin_attn_fused,
                                                    swin_mlp_fused)
@@ -856,15 +1013,15 @@ def temporal_path_phase(steps: int, profile: bool, fast: bool) -> dict[str, int]
           f"Mask2Former Swin-L (bf16_backbone={fast}, fused_swin={fused}), "
           f"{n_params / 1e6:.1f} M parameters, built in "
           f"{time.perf_counter() - t0:.2f} s; {steps} steps + 1 eval")
-    counters = [plane_sweep_diffs, swin_attn_fused, swin_mlp_fused,
-                window_attention, ms_deform_attn_core]
+    counters = [plane_sweep_diffs, plane_sweep_diffs_occ, swin_attn_fused,
+                swin_mlp_fused, window_attention, ms_deform_attn_core]
     name = "profile_fast_step" if fast else "profile_temporal_step"
     launches, _, batch = run_path(cfg, steps, seg_fn, counters,
                                   name if profile else None)
     # per step: 3 segmenter forwards (the current frame, two warped
     # frames) of 24 Swin blocks and 6 deformable encoder layers
     blocks = 72 * steps
-    want = {"plane_sweep_diffs": steps + 1,
+    want = {"plane_sweep_diffs": steps + 1, "plane_sweep_diffs_occ": 0,
             "swin_attn_fused": blocks if fused else 0,
             "swin_mlp_fused": blocks if fused else 0,
             "window_attention": 0 if fused else blocks,
@@ -924,6 +1081,30 @@ def temporal_path_phase(steps: int, profile: bool, fast: bool) -> dict[str, int]
     return launches
 
 
+def dynamic_path_phase(steps: int, profile: bool, fast: bool,
+                       counters: list) -> dict[str, int]:
+    """DynamicDepth at its benchmark configuration, in exact fp32 or with
+    `fast` in fast mode: K6 once per step and once per eval, nothing else."""
+    from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
+    from mal_tpu_torch.ops.cuda.cost_volume_kernel import plane_sweep_diffs_occ
+
+    cfg = Config(**DYNAMIC, **(TRAIN_FAST_SETTINGS if fast else {}))
+    print(f"DynamicDepth path{', fast mode' if fast else ''}: Config("
+          f"method='dynamicdepth', cv_min, cv_set_1, cv_pool_th=0.15"
+          f"{', **TRAIN_FAST_SETTINGS' if fast else ''}) {cfg.height}x"
+          f"{cfg.width} batch {cfg.batch_size}, {cfg.num_depth_bins} bins, "
+          f"ResNet-{cfg.num_layers}, {cfg.compute_dtype}, exact DOMD splat; "
+          f"{steps} steps + 1 eval")
+    name = "profile_dynamic_fast_step" if fast else "profile_dynamic_step"
+    launches, _, _ = run_path(cfg, steps, None, counters,
+                              name if profile else None)
+    for fn in counters:
+        want = steps + 1 if fn is plane_sweep_diffs_occ else 0
+        check(launches[fn.__name__] == want, f"{fn.__name__} launched "
+              f"{launches[fn.__name__]} times on this path, not {want}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3,
@@ -961,17 +1142,32 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernels = [k1_phase(), k2_phase(), k3_phase(), k4_phase(), k5_phase(),
-               k5b_phase()]
+    kernels = [k1_phase(), k6_phase(), k2_phase(), k3_phase(), k4_phase(),
+               k5_phase(), k5b_phase()]
     if args.kernels_only:
         print(json.dumps({"kernels": kernels}))
         return 0
     small_reference_phase()
     small_temporal_reference_phase()
     small_temporal_reference_phase(fast=True)
+    small_dynamic_reference_phase()
+
+    from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
+        plane_sweep_diffs, plane_sweep_diffs_occ)
+    from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
+    from mal_tpu_torch.ops.cuda.swin_block import (swin_attn_fused,
+                                                   swin_mlp_fused)
+    from mal_tpu_torch.ops.cuda.window_attention import window_attention
+
+    every = [plane_sweep_diffs, plane_sweep_diffs_occ, swin_attn_fused,
+             swin_mlp_fused, window_attention, ms_deform_attn_core]
     by_path = {"no_hint": main_path_phase(args.steps, args.profile),
                "temporal": temporal_path_phase(args.steps, args.profile, False),
-               "fast": temporal_path_phase(args.steps, args.profile, True)}
+               "fast": temporal_path_phase(args.steps, args.profile, True),
+               "dynamic": dynamic_path_phase(args.steps, args.profile, False,
+                                             every),
+               "dynamic_fast": dynamic_path_phase(args.steps, args.profile,
+                                                  True, every)}
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
                                  for path, counts in by_path.items()}

@@ -11,7 +11,9 @@ is assigned and every flax leaf is consumed, or it raises. Layouts:
   `layer0.0` / `layer0.1` / `layer1.1.*`; the decoders' `decoder.{i}`; the
   pose heads' `net.{i}`), as `mal_tpu/convert/export_pth.py` names them.
 `port_name` exposes the name mapping, so a test can line up `mal_tpu`'s
-gradients with `named_parameters()`.
+gradients with `named_parameters()`. `load_jax_dynamic_variables` does the
+same for the port's `DynDepthModel`, whose flax tree hoists the matching
+encoder's trunk and `reduce_conv` to the top level.
 
 `load_jax_mask2former(model, variables)` does the same for the frozen
 segmenter: `mask2former_state_dict` turns `mal_tpu`'s Mask2Former variables
@@ -116,7 +118,33 @@ def flax_to_state_dict(params: Mapping, batch_stats: Mapping,
 def load_jax_variables(model: torch.nn.Module, params: Mapping,
                        batch_stats: Mapping) -> None:
     """Fill `model` (a port `MALModel`) from flax `params` / `batch_stats`."""
-    sd = flax_to_state_dict(params, batch_stats, model.cfg.pose_cnn)
+    _load_strict(model, flax_to_state_dict(params, batch_stats,
+                                           model.cfg.pose_cnn))
+
+
+def nest_dynamic_tree(params: Mapping, batch_stats: Mapping):
+    """`mal_tpu`'s `DynDepthModel` trees in `MALModel`'s nesting: the bare
+    trunk (top-level `encoder`) and `reduce_conv` under `encoder`, as
+    `mal_tpu/convert/export_pth.py:export_dynamic_checkpoint_dir` re-nests
+    them."""
+    params, batch_stats = dict(params), dict(batch_stats)
+    params["encoder"] = {"encoder": params.pop("encoder"),
+                         "reduce_conv": params.pop("reduce_conv")}
+    if "encoder" in batch_stats:
+        batch_stats["encoder"] = {"encoder": batch_stats["encoder"]}
+    return params, batch_stats
+
+
+def load_jax_dynamic_variables(model: torch.nn.Module, params: Mapping,
+                               batch_stats: Mapping) -> None:
+    """Fill `model` (a port `DynDepthModel`) from `mal_tpu`'s DynDepthModel
+    `params` / `batch_stats`, strictly: every tensor assigned, every leaf
+    consumed."""
+    _load_strict(model, flax_to_state_dict(*nest_dynamic_tree(params,
+                                                              batch_stats)))
+
+
+def _load_strict(model: torch.nn.Module, sd: dict[str, np.ndarray]) -> None:
     target = {k: v for k, v in model.state_dict().items()
               if not k.endswith("num_batches_tracked")}
     missing = sorted(set(target) - set(sd))

@@ -31,6 +31,26 @@
 // never contracts into FMAs, in the operation order of the plain PyTorch
 // version (plane_sweep_diffs_reference): both compute the same x and y to
 // the bit, so the border tests and floor() can not flip between them.
+//
+// Kernel K6 is the same kernel with kOcc = true. It replaces the TPU kernel
+// plane_sweep_diffs_occ_pallas (DynamicDepth's cv_set_1 volume): the
+// occlusion mask occ (BF, h, w) of the lookup frame is warped with the same
+// four corner weights, occ_w = ((o00 w00 + o01 w01) + o10 w10) + o11 w11,
+// rounded op by op in that order as the plain version
+// (plane_sweep_diffs_occ_reference) rounds it, so that the test
+// occ_w > pool_th can not flip between them. Where it holds and the frame's
+// apply_occ is set, the warped features are all 1.0, and the sample's value
+// is mean_c |1 - cur_c|: it depends on the pixel only, so it is reduced once
+// per pixel from the registers that hold cur, and such a sample reads no
+// feature corner. The TPU kernel carries the mask as channel C+1 of its
+// interpolation matmuls; here it is an input of its own, which keeps the
+// feature rows 16-byte aligned for the float4 loads.
+//
+// Bound of K6 at DynamicDepth's shape (BF=14, D=96, 48x128, C=64, 8.26 M
+// samples): 22 MB each for cur and lookup, 0.34 MB of mask and a 33 MB
+// volume, ~0.023 ms at 3.35 TB/s; ~9 fp32 operations per channel for each
+// of the ~5-6 M samples inside the border masks, ~3.4 GFLOP or ~0.05 ms on
+// the non-tensor pipes. Operations bound it, as they bound K1.
 
 #include <cuda_runtime.h>
 
@@ -41,9 +61,14 @@ constexpr int kPixelsPerBlock = 8;   // 128 threads per block
 constexpr int kPlanesPerBlock = 8;   // depth planes swept by one block
 constexpr int kMaxGroups = 4;        // float4 channel groups per lane: C <= 256
 
+// kOcc: K6, with occ (BF, h, w), apply_occ (BF,) and pool_th; K1 ignores them
+template <bool kOcc>
 __global__ void __launch_bounds__(kLanes * kPixelsPerBlock)
 plane_sweep_diffs_kernel(const float* __restrict__ cur,
                          const float* __restrict__ lookup,
+                         const float* __restrict__ occ,
+                         const float* __restrict__ apply_occ,
+                         float pool_th,
                          const float* __restrict__ M,
                          const float* __restrict__ t,
                          const float* __restrict__ bins,
@@ -81,6 +106,27 @@ plane_sweep_diffs_kernel(const float* __restrict__ cur,
   }
   const float* lk = lookup + frame * C;
 
+  // K6: the value of an occluded sample, mean_c |1 - cur_c|, once per pixel
+  const bool occluding = kOcc && apply_occ[bf] > 0.f;
+  const float* oc = kOcc ? occ + frame : nullptr;
+  float occ_result = 0.f;
+  if (occluding) {
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < kMaxGroups; ++k) {
+      if (lane + k * kLanes < groups) {
+        acc += fabsf(1.f - c[k].x);
+        acc += fabsf(1.f - c[k].y);
+        acc += fabsf(1.f - c[k].z);
+        acc += fabsf(1.f - c[k].w);
+      }
+    }
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(group_mask, acc, off, kLanes);
+    occ_result = acc / static_cast<float>(C);
+  }
+
   const int d_end = min(static_cast<int>(blockIdx.z + 1) * kPlanesPerBlock, D);
   for (int d = blockIdx.z * kPlanesPerBlock; d < d_end; ++d) {
     const float dep = bins[d];
@@ -107,6 +153,18 @@ plane_sweep_diffs_kernel(const float* __restrict__ cur,
       // the edge test keeps all four corners inside the image
       const int xi = static_cast<int>(x0);
       const int yi = static_cast<int>(y0);
+      if (occluding) {
+        const float* o0 = oc + yi * w + xi;
+        const float* o1 = o0 + w;
+        const float occ_w = __fadd_rn(
+            __fadd_rn(__fadd_rn(__fmul_rn(o0[0], w00), __fmul_rn(o0[1], w01)),
+                      __fmul_rn(o1[0], w10)),
+            __fmul_rn(o1[1], w11));
+        if (occ_w > pool_th) {  // the same for all 16 lanes of the pixel
+          if (lane == 0) out[(static_cast<size_t>(bf) * D + d) * hw + pix] = occ_result;
+          continue;
+        }
+      }
       const float4* p00 = reinterpret_cast<const float4*>(
           lk + (static_cast<size_t>(yi) * w + xi) * C);
       const float4* p01 = p00 + groups;
@@ -134,23 +192,43 @@ plane_sweep_diffs_kernel(const float* __restrict__ cur,
   }
 }
 
+template <bool kOcc>
+int launch(const float* cur, const float* lookup, const float* occ,
+           const float* apply_occ, float pool_th, const float* M,
+           const float* t, const float* bins, float* out, int BF, int D,
+           int h, int w, int C, void* stream) {
+  const dim3 block(kLanes * kPixelsPerBlock);
+  const dim3 grid((h * w + kPixelsPerBlock - 1) / kPixelsPerBlock, BF,
+                  (D + kPlanesPerBlock - 1) / kPlanesPerBlock);
+  plane_sweep_diffs_kernel<kOcc><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      cur, lookup, occ, apply_occ, pool_th, M, t, bins, out, D, h, w, C);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
-// cur, lookup: (BF, h, w, C) fp32, 16-byte aligned, C % 4 == 0, C <= 256;
-// M: (BF, 3, 3); t: (BF, 3); bins: (D,); out: (BF, D, h, w). All on the
-// device. Launches on `stream` and returns cudaGetLastError().
+// K1. cur, lookup: (BF, h, w, C) fp32, 16-byte aligned, C % 4 == 0,
+// C <= 256; M: (BF, 3, 3); t: (BF, 3); bins: (D,); out: (BF, D, h, w). All
+// on the device. Launches on `stream` and returns cudaGetLastError().
 int plane_sweep_diffs_f32(const float* cur, const float* lookup,
                           const float* M, const float* t, const float* bins,
                           float* out, int BF, int D, int h, int w, int C,
                           void* stream) {
-  const dim3 block(kLanes * kPixelsPerBlock);
-  const dim3 grid((h * w + kPixelsPerBlock - 1) / kPixelsPerBlock, BF,
-                  (D + kPlanesPerBlock - 1) / kPlanesPerBlock);
-  plane_sweep_diffs_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      cur, lookup, M, t, bins, out, D, h, w, C);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(cur, lookup, nullptr, nullptr, 0.f, M, t, bins, out,
+                       BF, D, h, w, C, stream);
+}
+
+// K6. As K1, plus occ: (BF, h, w) fp32 and apply_occ: (BF,) fp32 on the
+// device, and the threshold pool_th.
+int plane_sweep_diffs_occ_f32(const float* cur, const float* lookup,
+                              const float* occ, const float* apply_occ,
+                              float pool_th, const float* M, const float* t,
+                              const float* bins, float* out, int BF, int D,
+                              int h, int w, int C, void* stream) {
+  return launch<true>(cur, lookup, occ, apply_occ, pool_th, M, t, bins, out,
+                      BF, D, h, w, C, stream);
 }
 
 const char* plane_sweep_error_string(int code) {

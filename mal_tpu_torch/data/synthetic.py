@@ -1,4 +1,5 @@
-"""Synthetic KITTI-shaped batches (counterpart of `mal_tpu.data.synthetic`)."""
+"""Synthetic KITTI-shaped batches (counterpart of `mal_tpu.data.synthetic`),
+and DynamicDepth's dynamic-object masks."""
 
 from __future__ import annotations
 
@@ -26,3 +27,16 @@ def synthetic_batch(cfg: Config, generator: torch.Generator,
     K = K.expand(B, 4, 4).contiguous()
     return {"color": color, "color_aug": color_aug, "K": K,
             "inv_K": torch.linalg.inv(K)}
+
+
+def synthetic_doj_masks(cfg: Config, device: str | torch.device) -> dict:
+    """The dynamic-object masks of `benchmarks/bench_methods.py:66-71`, each
+    (B, H, W): `doj_mask` ones at rows 60-120 and columns 100-300, and the
+    same rolled -8 and +8 columns for frames -1 and +1. At another size
+    than 192x512 the box and the shift scale with the frame."""
+    B, H, W = cfg.batch_size, cfg.height, cfg.width
+    doj = torch.zeros((B, H, W), dtype=torch.float32, device=device)
+    doj[:, 60 * H // 192:120 * H // 192, 100 * W // 512:300 * W // 512] = 1.0
+    shift = max(1, 8 * W // 512)
+    return {"doj_mask": doj, "doj_mask-1": doj.roll(-shift, dims=2),
+            "doj_mask+1": doj.roll(shift, dims=2)}

@@ -1,11 +1,13 @@
 """Self-supervised depth losses and the MAL hints (PyTorch, NCHW).
 
-Counterpart of the parts of `mal_tpu.losses` that the default ManyDepth+MAL
-step reaches: SSIM+L1 reprojection with min-reprojection automasking
-(`manydepth/loss_utils.py:27-55`), edge-aware smoothness
+Counterpart of the parts of `mal_tpu.losses` that the ManyDepth+MAL and
+DynamicDepth steps reach: SSIM+L1 reprojection with min-reprojection
+automasking (`manydepth/loss_utils.py:27-55`), edge-aware smoothness
 (`manydepth/layers.py:210-223`), the teacher and student losses with the
-distillation hint (`manydepth/loss_utils.py:57-281`) and the two-term loss
-balancer as a state object (`manydepth/loss_utils.py:283-345`).
+distillation hint (`manydepth/loss_utils.py:57-281`), the two-term loss
+balancer as a state object (`manydepth/loss_utils.py:283-345`), and
+DynamicDepth's options: `--zero_img`, `--selec_reproj` and the
+feature-metric loss (`dynamicdepth/trainer.py:955-966,1058-1065,1135-1156`).
 
 Images and loss maps are channels-first here: images (B, 3, H, W), loss and
 depth maps (B, 1, H, W), masks without a channel axis (B, H, W). The
@@ -37,6 +39,82 @@ def l1_reprojection_loss(pred: Tensor, target: Tensor) -> Tensor:
     return (target - pred).abs().mean(dim=1, keepdim=True)
 
 
+def reprojection_loss_zero_img(pred: Tensor, target: Tensor) -> Tensor:
+    """`--zero_img`, one pair (`dynamicdepth/trainer.py:955-963`): where the
+    warped prediction is black (channel sum < 0.1, a DOMD-blanked pixel),
+    pred and target both become 0, so the pixel adds no loss. The training
+    path is the stateful `zero_img_reproj_sequence`."""
+    black = pred.detach().sum(dim=1, keepdim=True) < 0.1
+    return reprojection_loss(torch.where(black, 0.0, pred),
+                             torch.where(black, 0.0, target))
+
+
+def zero_img_reproj_sequence(target: Tensor, preds: Sequence[Tensor]
+                             ) -> tuple[list[Tensor], Tensor]:
+    """`--zero_img` over a sequence of preds, as the reference runs it:
+    `compute_reprojection_loss` (`dynamicdepth/trainer.py:958-966`) zeroes
+    the target in place, so each call sees the union of the earlier preds'
+    black holes, and whatever reads frame 0 later sees the final target.
+    Returns the per-pred loss maps in call order and the final target."""
+    outs = []
+    for pred in preds:
+        hole = pred.detach().sum(dim=1, keepdim=True) < 0.1
+        target = torch.where(hole, 0.0, target)
+        outs.append(reprojection_loss(torch.where(hole, 0.0, pred), target))
+    return outs, target
+
+
+def apply_selec_reproj(reproj_all: Tensor, warped: Sequence[Tensor]) -> Tensor:
+    """`--selec_reproj` (`dynamicdepth/trainer.py:1058-1065`): the per-pixel
+    min reprojection, except that where one warped frame is black the other
+    frame's loss is taken, and where both are black 0.
+
+    reproj_all (B, 2, H, W): the per-frame losses; warped: the two warped
+    frames (the reference hard-codes frames -1 and +1)."""
+    assert reproj_all.shape[1] == 2 and len(warped) == 2
+    m0 = warped[0].detach().sum(dim=1, keepdim=True) < 0.1
+    m1 = warped[1].detach().sum(dim=1, keepdim=True) < 0.1
+    out = reproj_all.amin(dim=1, keepdim=True)
+    out = torch.where(m0, reproj_all[:, 1:2], out)
+    out = torch.where(m1, reproj_all[:, 0:1], out)
+    return torch.where(m0 & m1, 0.0, out)
+
+
+def feature_metric_loss(feature: Tensor, img: Tensor, feat_dis: float = 0.01,
+                        feat_cvt: float = 0.01) -> Tensor:
+    """DynamicDepth's feature-metric loss (`dynamicdepth/trainer.py:
+    1135-1156`): -feat_dis x the first-order plus feat_cvt x the
+    second-order edge-weighted smoothness of the features.
+
+    feature (B, C, h, w); img (B, 3, H, W), resized to (h, w) by area
+    averaging as the reference's `F.interpolate(mode='area')` does (a
+    bilinear resize where the sizes do not divide, as `mal_tpu`)."""
+    B, _, h, w = feature.shape
+    H, W = img.shape[-2:]
+    if H % h == 0 and W % w == 0:
+        img_s = img.reshape(B, -1, h, H // h, w, W // w).mean(dim=(3, 5))
+    else:
+        from mal_tpu_torch.ops.interp import resize_bilinear
+        img_s = resize_bilinear(img, h, w)
+
+    def grad(x):
+        return x[..., 1:] - x[..., :-1], x[..., 1:, :] - x[..., :-1, :]
+
+    def term(f_g, i_g):
+        return (f_g.abs() * torch.exp(-i_g.abs().mean(dim=1, keepdim=True))).mean()
+
+    f_dx, f_dy = grad(feature)
+    i_dx, i_dy = grad(img_s)
+    smooth1 = term(f_dx, i_dx) + term(f_dy, i_dy)
+    f_dxx, f_dxy = grad(f_dx)
+    f_dyx, f_dyy = grad(f_dy)
+    i_dxx, i_dxy = grad(i_dx)
+    i_dyx, i_dyy = grad(i_dy)
+    smooth2 = (term(f_dxx, i_dxx) + term(f_dxy, i_dxy)
+               + term(f_dyx, i_dyx) + term(f_dyy, i_dyy))
+    return -feat_dis * smooth1 + feat_cvt * smooth2
+
+
 def smooth_loss(disp: Tensor, img: Tensor) -> Tensor:
     """Edge-aware smoothness of a disparity map. Scalar."""
     grad_disp_x = (disp[:, :, :, :-1] - disp[:, :, :, 1:]).abs()
@@ -66,10 +144,15 @@ def min_reprojection(preds: Sequence[Tensor], target: Tensor,
     return losses.amin(dim=1, keepdim=True)
 
 
-def _reduce_sources(maps: Sequence[Tensor], avg: bool) -> Tensor:
+def _reduce_sources(maps: Sequence[Tensor], avg: bool,
+                    selec_warped: Sequence[Tensor] | None = None) -> Tensor:
+    """The per-pixel min (mean with `avg`) over per-source loss maps;
+    `selec_warped`: `--selec_reproj` over these two warped frames."""
     stacked = torch.cat(list(maps), dim=1)
     if avg:
         return stacked.mean(dim=1, keepdim=True)
+    if selec_warped is not None:
+        return apply_selec_reproj(stacked, list(selec_warped))
     return stacked.amin(dim=1, keepdim=True)
 
 
@@ -85,7 +168,11 @@ def mono_losses(noise: Tensor | None, disp: Tensor, color: Tensor,
                 syn: Sequence[Tensor] = (), smoothness_weight: float = 1e-3,
                 reproj_fn=reprojection_loss,
                 avg_reprojection: bool = False,
-                disable_automasking: bool = False) -> MonoLossOut:
+                disable_automasking: bool = False,
+                selec_reproj: bool = False,
+                reproj_maps: Sequence[Tensor] | None = None,
+                identity_maps: Sequence[Tensor] | None = None,
+                smooth_color: Tensor | None = None) -> MonoLossOut:
     """Teacher losses (`manydepth/loss_utils.py:57-129`).
 
     `noise` (B, 1, H, W) is a standard-normal draw; 1e-5 of it breaks the
@@ -93,19 +180,27 @@ def mono_losses(noise: Tensor | None, disp: Tensor, color: Tensor,
     `mal_tpu`. `syn`: the temporal hint's synthesized frames, extra
     min-reprojection candidates. `avg_reprojection` takes the per-pixel
     mean over source frames instead of the min (monodepth2's semantics).
+    `selec_reproj`: `apply_selec_reproj` in place of the min (without
+    `syn`). `reproj_maps` / `identity_maps` / `smooth_color` inject the
+    per-frame loss maps and the smoothness image, as the `--zero_img` path
+    (`zero_img_reproj_sequence`) computes them.
     """
+    if reproj_maps is None:
+        reproj_maps = [reproj_fn(p, color) for p in list(warped) + list(syn)]
     reproj_min = _reduce_sources(
-        [reproj_fn(p, color) for p in list(warped) + list(syn)],
-        avg_reprojection)
+        reproj_maps, avg_reprojection,
+        warped if selec_reproj and not syn else None)
     if disable_automasking:
         mask = torch.ones_like(reproj_min)
     else:
-        ident_min = _reduce_sources([reproj_fn(p, color) for p in identity],
-                                    avg_reprojection)
+        if identity_maps is None:
+            identity_maps = [reproj_fn(p, color) for p in identity]
+        ident_min = _reduce_sources(identity_maps, avg_reprojection)
         mask = automask(reproj_min, ident_min + noise * 1e-5)
 
     reproj = (reproj_min * mask).sum() / (mask.sum() + 1e-7)
-    sm = normalized_smooth_loss(disp, color)
+    sm = normalized_smooth_loss(
+        disp, color if smooth_color is None else smooth_color)
     total = reproj + smoothness_weight * sm
     return MonoLossOut(total, reproj, sm, reproj_min)
 
@@ -126,7 +221,9 @@ def multi_losses(disp: Tensor, color: Tensor, warped: Sequence[Tensor],
                  ensemble_min_reproj: Tensor | None = None,
                  dual_distil_mono_depth: Tensor | None = None,
                  smoothness_weight: float = 1e-3, reproj_fn=reprojection_loss,
-                 avg_reprojection: bool = False) -> MultiLossOut:
+                 avg_reprojection: bool = False, selec_reproj: bool = False,
+                 reproj_maps: Sequence[Tensor] | None = None,
+                 smooth_color: Tensor | None = None) -> MultiLossOut:
     """Student losses and the MAL distillation hint
     (`manydepth/loss_utils.py:131-281`).
 
@@ -134,18 +231,22 @@ def multi_losses(disp: Tensor, color: Tensor, warped: Sequence[Tensor],
     augmentation_mask (B, 1, 1, 1); syn: the temporal hint's synthesized
     frames (`main_temporal`), extra min-reprojection candidates. The
     distillation target is the per-pixel argmin over the {mono, ensemble,
-    multi} reprojection errors.
+    multi} reprojection errors. `selec_reproj`, `reproj_maps` and
+    `smooth_color` as in `mono_losses`.
     """
+    if reproj_maps is None:
+        reproj_maps = [reproj_fn(p, color) for p in list(warped) + list(syn)]
     multi_min_reproj = _reduce_sources(
-        [reproj_fn(p, color) for p in list(warped) + list(syn)],
-        avg_reprojection)
+        reproj_maps, avg_reprojection,
+        warped if selec_reproj and not syn else None)
 
     mask = consistency_mask_in[:, None] * (1.0 - augmentation_mask)
     consistency_mask = 1.0 - mask
 
     reproj = (multi_min_reproj * mask).sum() / (mask.sum() + 1e-7)
     consistency = ((multi_depth - mono_depth).abs() * consistency_mask).mean()
-    sm = normalized_smooth_loss(disp, color)
+    sm = normalized_smooth_loss(
+        disp, color if smooth_color is None else smooth_color)
     loss = reproj + consistency + smoothness_weight * sm
 
     # --- distillation hint ---

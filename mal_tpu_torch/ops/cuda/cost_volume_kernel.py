@@ -1,26 +1,29 @@
-"""Kernel K1, the plane-sweep cost volume, as a CUDA kernel for Hopper.
+"""Kernels K1 and K6, the plane-sweep cost volume, as CUDA kernels for Hopper.
 
 Counterpart of `mal_tpu.ops.pallas.cost_volume_kernel` (the Pallas TPU
-kernel `plane_sweep_diffs_pallas` and its wrapper
-`plane_sweep_cost_volume_pallas`). The kernel source is
-`mal_tpu_torch/csrc/plane_sweep.cu`; its header says what bounds it and how
-it is laid out.
+kernels `plane_sweep_diffs_pallas` and `plane_sweep_diffs_occ_pallas`, and
+the wrapper `plane_sweep_cost_volume_pallas`). Both kernels are one
+templated kernel in `mal_tpu_torch/csrc/plane_sweep.cu`; its header says
+what bounds them and how they are laid out.
 
-- `plane_sweep_diffs`: the kernel's wrapper. For CUDA tensors it checks
-  them and launches the kernel, counting each launch in
-  `plane_sweep_diffs.launches`; for CPU tensors it returns the plain
-  version. It never falls back from the kernel to the plain version.
-- `plane_sweep_diffs_reference`: the plain PyTorch version of the same
-  function, in the kernel's order of operations.
-- `plane_sweep_cost_volume_kernel`: the full cost volume around the kernel.
+- `plane_sweep_diffs` (K1) and `plane_sweep_diffs_occ` (K6, DynamicDepth's
+  `cv_set_1` volume: warped features of occluded samples become 1.0): the
+  kernels' wrappers. For CUDA tensors each checks them and launches its
+  kernel, counting each launch in its `.launches`; for CPU tensors each
+  returns its plain version. Neither falls back from the kernel to the
+  plain version.
+- `plane_sweep_diffs_reference` / `plane_sweep_diffs_occ_reference`: the
+  plain PyTorch versions, in the kernel's order of operations.
+- `plane_sweep_cost_volume_kernel`: the full cost volume around K1.
 
 `mal_tpu`'s `cv_mxu_precision` ("highest", or "default" in fast mode)
 chooses how many bf16 passes the TPU's matrix unit spends on the Pallas
-kernel's one-hot interpolation products
-(`mal_tpu/ops/pallas/cost_volume_kernel.py:39-43`). The CUDA kernel gathers
-in fp32 and has no such product, so `Config.cv_mxu_precision` is accepted
-and changes nothing here: K1 is exact in fast mode, where the TPU kernel is
-approximate, and is fed the fp32 casts of the bf16 trunk's features.
+kernels' one-hot interpolation products
+(`mal_tpu/ops/pallas/cost_volume_kernel.py:39-43`). The CUDA kernels gather
+in fp32 and have no such product, so `Config.cv_mxu_precision` is accepted
+and changes nothing here: K1 and K6 are exact in fast mode, where the TPU
+kernels are approximate, and are fed the fp32 casts of the bf16 trunk's
+features.
 """
 
 from __future__ import annotations
@@ -37,17 +40,12 @@ SOURCE = "plane_sweep"
 _MAX_CHANNELS = 256   # the kernel holds at most 4 float4 groups per lane
 
 
-def plane_sweep_diffs_reference(cur: Tensor, lookup: Tensor, M: Tensor,
-                                t: Tensor, depth_bins: Tensor,
-                                chunk: int = 16) -> Tensor:
-    """Per-frame masked L1 plane-sweep differences (BF, D, h, w), plain torch.
-
-    cur / lookup (BF, h, w, C); M (BF, 3, 3); t (BF, 3); depth_bins (D,).
-    The depth planes go `chunk` at a time (D % chunk == 0) to bound memory.
-    The projection follows the kernels' order of operations,
-    x = (d * ((m00 u + m01 v) + m02) + t0) / ((d * (...) + t2) + 1e-7), so
-    that the CUDA kernel reproduces x and y to the bit.
-    """
+def _plane_sweep_reference(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
+                           depth_bins: Tensor, chunk: int,
+                           occ: Tensor | None = None,
+                           apply_occ: Tensor | None = None,
+                           pool_th: float = 0.0) -> Tensor:
+    """K1's plain version, and with `occ` given K6's."""
     BF, h, w, C = cur.shape
     D = depth_bins.shape[0]
     if D % chunk:
@@ -64,6 +62,9 @@ def plane_sweep_diffs_reference(cur: Tensor, lookup: Tensor, M: Tensor,
 
     flat = lookup.reshape(BF * h * w, C)
     base = (torch.arange(BF, device=dev) * (h * w)).reshape(BF, 1, 1, 1)
+    if occ is not None:
+        occ_flat = occ.reshape(BF * h * w, 1)
+        applied = (apply_occ > 0).reshape(BF, 1, 1, 1)
     out = []
     for d in depth_bins.to(torch.float32).reshape(D // chunk, chunk):
         d = d.reshape(1, chunk, 1, 1)
@@ -80,28 +81,67 @@ def plane_sweep_diffs_reference(cur: Tensor, lookup: Tensor, M: Tensor,
         wy1 = y - y0
         wy0 = 1.0 - wy1
 
-        def corner(xi, yi, wgt):
-            """Zeros-padded gather of one bilinear corner, times its weight."""
-            ok = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
-            idx = (yi.clamp(0, h - 1).long() * w + xi.clamp(0, w - 1).long()
-                   + base)
-            vals = flat.index_select(0, idx.reshape(-1))
-            return vals.reshape(idx.shape + (C,)) * (wgt * ok)[..., None]
+        def warp(values, channels):
+            """Zeros-padded bilinear warp of (BF * h * w, channels) values,
+            the corners summed in the kernel's order."""
+            total = 0.0
+            for xi, yi, wgt in ((x0, y0, wx0 * wy0), (x0 + 1, y0, wx1 * wy0),
+                                (x0, y0 + 1, wx0 * wy1),
+                                (x0 + 1, y0 + 1, wx1 * wy1)):
+                ok = (xi >= 0) & (xi <= w - 1) & (yi >= 0) & (yi <= h - 1)
+                idx = (yi.clamp(0, h - 1).long() * w
+                       + xi.clamp(0, w - 1).long() + base)
+                vals = values.index_select(0, idx.reshape(-1))
+                total = total + (vals.reshape(idx.shape + (channels,))
+                                 * (wgt * ok)[..., None])
+            return total
 
-        warped = (corner(x0, y0, wx0 * wy0) + corner(x0 + 1, y0, wx1 * wy0)
-                  + corner(x0, y0 + 1, wx0 * wy1)
-                  + corner(x0 + 1, y0 + 1, wx1 * wy1))
+        warped = warp(flat, C)                              # (BF, chunk, h, w, C)
+        if occ is not None:
+            # cv_set_1: an occluded sample is held against all-ones features
+            omask = (warp(occ_flat, 1)[..., 0] > pool_th) & applied
+            warped = torch.where(omask[..., None], 1.0, warped)
         diff = (warped - cur[:, None]).abs().mean(dim=-1)   # (BF, chunk, h, w)
         edge = (x >= 2.0) & (x <= w - 2) & (y >= 2.0) & (y <= h - 2)
         out.append(diff * (edge & inner).to(diff.dtype))
     return torch.cat(out, dim=1)
 
 
+def plane_sweep_diffs_reference(cur: Tensor, lookup: Tensor, M: Tensor,
+                                t: Tensor, depth_bins: Tensor,
+                                chunk: int = 16) -> Tensor:
+    """Per-frame masked L1 plane-sweep differences (BF, D, h, w), plain torch.
+
+    cur / lookup (BF, h, w, C); M (BF, 3, 3); t (BF, 3); depth_bins (D,).
+    The depth planes go `chunk` at a time (D % chunk == 0) to bound memory.
+    The projection follows the kernels' order of operations,
+    x = (d * ((m00 u + m01 v) + m02) + t0) / ((d * (...) + t2) + 1e-7), so
+    that the CUDA kernel reproduces x and y to the bit.
+    """
+    return _plane_sweep_reference(cur, lookup, M, t, depth_bins, chunk)
+
+
+def plane_sweep_diffs_occ_reference(cur: Tensor, lookup: Tensor, occ: Tensor,
+                                    apply_occ: Tensor, M: Tensor, t: Tensor,
+                                    depth_bins: Tensor, pool_th: float,
+                                    chunk: int = 16) -> Tensor:
+    """K6's plain version: `plane_sweep_diffs_reference` with the DOMD
+    occlusion mask occ (BF, h, w) warped by the same bilinear weights,
+    ((o00 w00 + o01 w01) + o10 w10) + o11 w11 as the kernel sums it. Where
+    the warped mask exceeds `pool_th` and the frame's apply_occ (BF,) is
+    positive, the warped features become 1.0 before the channel mean
+    (`mal_tpu/ops/pallas/cost_volume_kernel.py:284-290`)."""
+    return _plane_sweep_reference(cur, lookup, M, t, depth_bins, chunk,
+                                  occ=occ, apply_occ=apply_occ,
+                                  pool_th=pool_th)
+
+
 def _check(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
-           depth_bins: Tensor) -> None:
-    """Raise on anything the kernel does not take."""
+           depth_bins: Tensor, **extra: Tensor) -> None:
+    """Raise on anything the kernels do not take; `extra`: K6's occ and
+    apply_occ."""
     tensors = {"cur": cur, "lookup": lookup, "M": M, "t": t,
-               "depth_bins": depth_bins}
+               "depth_bins": depth_bins, **extra}
     for name, x in tensors.items():
         if x.device != cur.device:
             raise ValueError(f"{name} is on {x.device}, cur on {cur.device}")
@@ -121,6 +161,11 @@ def _check(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
                          f"{tuple(depth_bins.shape)} do not fit BF={BF}")
     if cur.data_ptr() % 16 or lookup.data_ptr() % 16:
         raise ValueError("cur and lookup must be 16-byte aligned")
+    if "occ" in extra and (extra["occ"].shape != (BF, h, w)
+                           or extra["apply_occ"].shape != (BF,)):
+        raise ValueError(f"occ {tuple(extra['occ'].shape)} and apply_occ "
+                         f"{tuple(extra['apply_occ'].shape)} do not fit "
+                         f"(BF, h, w) = {(BF, h, w)}")
 
 
 def _library() -> ctypes.CDLL:
@@ -131,6 +176,11 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        occ = lib.plane_sweep_diffs_occ_f32
+        occ.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float]
+                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p])
+        occ.restype = ctypes.c_int
         lib.plane_sweep_error_string.argtypes = [ctypes.c_int]
         lib.plane_sweep_error_string.restype = ctypes.c_char_p
     return lib
@@ -167,6 +217,41 @@ def plane_sweep_diffs(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
 
 
 plane_sweep_diffs.launches = 0
+
+
+def plane_sweep_diffs_occ(cur: Tensor, lookup: Tensor, occ: Tensor,
+                          apply_occ: Tensor, M: Tensor, t: Tensor,
+                          depth_bins: Tensor, pool_th: float) -> Tensor:
+    """K6: per-frame masked L1 plane-sweep differences (BF, D, h, w) with
+    the `cv_set_1` occlusion substitution. Arguments as
+    `plane_sweep_diffs_occ_reference`. CUDA tensors go to the kernel; CPU
+    tensors to the plain version."""
+    if cur.device.type == "cpu":
+        D = depth_bins.shape[0]
+        return plane_sweep_diffs_occ_reference(cur, lookup, occ, apply_occ, M,
+                                               t, depth_bins, pool_th,
+                                               chunk=min(D, 16))
+    if cur.device.type != "cuda":
+        raise ValueError(f"unsupported device {cur.device}")
+    _check(cur, lookup, M, t, depth_bins, occ=occ, apply_occ=apply_occ)
+    BF, h, w, C = cur.shape
+    D = depth_bins.shape[0]
+    out = torch.empty((BF, D, h, w), dtype=torch.float32, device=cur.device)
+    lib = _library()
+    with torch.cuda.device(cur.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.plane_sweep_diffs_occ_f32(
+            cur.data_ptr(), lookup.data_ptr(), occ.data_ptr(),
+            apply_occ.data_ptr(), float(pool_th), M.data_ptr(), t.data_ptr(),
+            depth_bins.data_ptr(), out.data_ptr(), BF, D, h, w, C, stream)
+    if err:
+        msg = lib.plane_sweep_error_string(err).decode()
+        raise RuntimeError(f"plane_sweep_diffs_occ launch failed: {msg} ({err})")
+    plane_sweep_diffs_occ.launches += 1
+    return out
+
+
+plane_sweep_diffs_occ.launches = 0
 
 
 def plane_sweep_cost_volume_kernel(cur_feats: Tensor, lookup_feats: Tensor,

@@ -53,7 +53,7 @@ class DepthBinTracker:
 @dataclasses.dataclass
 class TrainState:
     step: int
-    model: MALModel
+    model: torch.nn.Module   # MALModel or DynDepthModel
     optimizer: torch.optim.Optimizer
     bins: DepthBinTracker
     balancer: LossBalancerState
@@ -78,20 +78,23 @@ def apply_gradients(optimizer: torch.optim.Optimizer, lr: float) -> None:
     optimizer.step()
 
 
-def trainable_parameters(cfg: Config, model: MALModel) -> list:
+def trainable_parameters(cfg: Config, model: torch.nn.Module) -> list:
     """The parameters the optimizer updates: all but the top-level sub-nets
-    that a freeze option keeps fixed (`mal_tpu/train/state.py:169-177`)."""
+    that a freeze option keeps fixed (`mal_tpu/train/state.py:169-177`;
+    `train_teacher_only` freezes the student, `dynamicdepth/trainer.py:
+    138-141`, whose `reduce_conv` is part of `encoder` here)."""
+    frozen: tuple[str, ...] = ()
     if cfg.freeze_teacher_and_pose:
         frozen = ("mono_encoder", "mono_depth", "pose_encoder", "pose")
     elif cfg.freeze_pose:
         frozen = ("pose_encoder", "pose")
-    else:
-        frozen = ()
+    if cfg.train_teacher_only:
+        frozen += ("encoder", "depth")
     return [p for name, p in model.named_parameters()
             if name.split(".")[0] not in frozen]
 
 
-def make_optimizer(cfg: Config, model: MALModel) -> torch.optim.Adam:
+def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Adam:
     """Adam (optax's defaults: betas 0.9 / 0.999, eps 1e-8 outside the
     square root) over the trainable parameters. The train step sets the
     learning rate before each update; a frozen sub-net is left out, so it
@@ -108,9 +111,15 @@ def make_optimizer(cfg: Config, model: MALModel) -> torch.optim.Adam:
 def create_train_state(cfg: Config, device: str | torch.device | None = None,
                        generator: torch.Generator | None = None) -> TrainState:
     """A fresh state on `device` (default: the GPU, raising if there is
-    none), with weights drawn from `generator` (default: seed 0)."""
+    none), with weights drawn from `generator` (default: seed 0): a
+    `MALModel`, or a `DynDepthModel` for `method="dynamicdepth"`."""
     device = resolve_device(device)
-    model = MALModel(cfg, device=device, generator=generator)
+    if cfg.method == "dynamicdepth":
+        from mal_tpu_torch.dynamic.model import DynDepthModel
+
+        model = DynDepthModel(cfg, device=device, generator=generator)
+    else:
+        model = MALModel(cfg, device=device, generator=generator)
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(cfg, model),
                       bins=DepthBinTracker.create(device=device),

@@ -40,28 +40,47 @@ Tensor = torch.Tensor
 def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
     """Raise for the options whose code paths are not ported yet, and for
     the temporal hint without a segmenter."""
+    dynamic = cfg.method == "dynamicdepth"
     unported = {
-        "method != 'manydepth'": cfg.method != "manydepth",
-        "pareto": cfg.distil and cfg.pareto,
+        "method 'dualrefine'": cfg.method not in ("manydepth", "dynamicdepth"),
+        "pareto": cfg.distil and cfg.pareto and not dynamic,
         "remat": cfg.remat,
         "loss_pct": cfg.loss_pct,
         "num_depth_shards > 1": cfg.num_depth_shards > 1,
-        "train_teacher_only": cfg.train_teacher_only,
+        "train_teacher_only without dynamicdepth": (cfg.train_teacher_only
+                                                    and not dynamic),
     }
     for name, on in unported.items():
         if on:
             raise NotImplementedError(f"{name}: not yet ported")
+    compute_dtype_of(cfg.compute_dtype)   # raises on an unknown type
+    if dynamic:
+        if cfg.online_doj:
+            raise NotImplementedError(
+                "online_doj: the online dynamic-object masks wait for the "
+                "port of segment/doj.py")
+        return
     if cfg.seg_cache_root is not None:
         raise NotImplementedError(
             "seg_cache_root: the precomputed instance cache waits for the "
             "port of the host loop and its I/O")
-    compute_dtype_of(cfg.compute_dtype)   # raises on an unknown type
     if (cfg.temporal or cfg.main_temporal) and seg_fn is None:
         raise ValueError("cfg.temporal requires a segmentation seg_fn")
     if cfg.learn_ens:
         # as mal_tpu: the reference's ens_disp producer is missing from its
         # snapshot (`manydepth/loss_utils.py:240` reads a key no module writes)
         raise NotImplementedError("learn_ens: broken in the reference")
+
+
+def warp_frame(src: Tensor, depth: Tensor, T: Tensor, K: Tensor,
+               inv_K: Tensor) -> Tensor:
+    """Inverse-warp `src` (B, 3, H, W) into the current view by depth
+    (B, 1, H, W) and pose T, with border padding
+    (`manydepth/trainer.py:1111-1125`, `mal_tpu/train/step.py:32-41`)."""
+    B, _, H, W = src.shape
+    points = geometry.backproject(depth, inv_K, H, W)
+    grid = geometry.project_3d(points, K, T, H, W)
+    return grid_sample(src, grid, padding_mode="border")
 
 
 def _all_photometric_warps(cfg: Config, batch: dict, outputs: dict,
@@ -244,13 +263,18 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
                     seg_fn: Callable | None = None) -> Callable:
     """`train_step(state, batch, epoch=0.0, generator=None, draws=None)
     -> (state, metrics)` on `device` (default: the GPU, raising if there
-    is none). `seg_fn` as in `make_loss_fn`.
+    is none). `seg_fn` as in `make_loss_fn`. `cfg.method="dynamicdepth"`
+    gives `mal_tpu_torch.dynamic.step.make_dynamic_train_step`'s step.
 
     `draws` may hold "matching_aug" (B,) and "automask_noise" (B, 1, H, W)
     to inject the step's random draws. The learning rate of step n is the
     schedule at n, counted before the increment, as optax counts it (so
     step 0 trains at `init_lr`).
     """
+    if cfg.method == "dynamicdepth":
+        from mal_tpu_torch.dynamic.step import make_dynamic_train_step
+
+        return make_dynamic_train_step(cfg, device)
     device = resolve_device(device)
     check_supported(cfg, seg_fn)
     train_teacher = not cfg.freeze_teacher_and_pose

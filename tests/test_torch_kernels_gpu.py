@@ -75,6 +75,61 @@ def test_k1_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         tk.plane_sweep_diffs(cur, lookup.cpu(), M, t, bins)
 
 
+def _k6_extra(BF, h, w, seed=0):
+    """An occlusion mask with black patches and a mixed apply_occ (BF,)."""
+    rng = np.random.RandomState(seed)
+    occ = np.zeros((BF, h, w), np.float32)
+    occ[:, h // 4:h // 2, w // 4:w // 2] = 1.0
+    occ[:, rng.randint(0, h - 3), :] = 1.0
+    apply_occ = (np.arange(BF) % 3 != 2).astype(np.float32)
+    return torch.from_numpy(occ), torch.from_numpy(apply_occ)
+
+
+# (BF, h, w, C, D, pool_th): a ragged pixel count, few channels, the widest
+# the kernel takes, and DynamicDepth's shape and threshold
+@pytest.mark.parametrize("shape", [(3, 13, 21, 8, 8, 0.7),
+                                   (2, 9, 17, 256, 16, 0.15),
+                                   (14, 48, 128, 64, 96, 0.15)])
+def test_k6_matches_plain_version(cuda, shape):
+    BF, h, w, C, D, pool_th = shape
+    cur, lookup, M, t, bins = [a.to(cuda) for a in _k1_inputs(BF, h, w, C, D)]
+    occ, apply_occ = [a.to(cuda) for a in _k6_extra(BF, h, w)]
+    args = (cur, lookup, occ, apply_occ, M, t, bins, pool_th)
+    before = tk.plane_sweep_diffs_occ.launches
+    out = tk.plane_sweep_diffs_occ(*args)
+    assert tk.plane_sweep_diffs_occ.launches == before + 1
+    plain = tk.plane_sweep_diffs_occ_reference(*args, chunk=8)
+    torch.cuda.synchronize()
+    # as K1: the projection and the warped mask are bit-identical, so no
+    # border and no occlusion decision flips, and an occluded sample's
+    # value (mean |1 - cur|) is far from an open one's
+    assert ((out == 0) != (plain == 0)).sum().item() == 0
+    torch.testing.assert_close(out, plain, rtol=0, atol=3e-5)
+    # the substitution fired, on the applied frames only (the last frame's
+    # pose is missing: it samples nothing)
+    open_ = tk.plane_sweep_diffs_occ_reference(
+        cur, lookup, occ, torch.zeros_like(apply_occ), M, t, bins, pool_th,
+        chunk=8)
+    changed = (out - open_).abs().flatten(1).amax(1) > 1e-3
+    sampled = (open_ != 0).flatten(1).any(1)
+    assert changed.tolist() == (apply_occ.bool() & sampled).tolist()
+    assert changed.any().item()
+
+
+def test_k6_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    cur, lookup, M, t, bins = [a.to(cuda) for a in _k1_inputs(2, 8, 12, 8, 8)]
+    occ, apply_occ = [a.to(cuda) for a in _k6_extra(2, 8, 12)]
+    with pytest.raises(ValueError, match="do not fit"):
+        tk.plane_sweep_diffs_occ(cur, lookup, occ[:, :4].contiguous(),
+                                 apply_occ, M, t, bins, 0.15)
+    with pytest.raises(TypeError):
+        tk.plane_sweep_diffs_occ(cur, lookup, occ.double(), apply_occ, M, t,
+                                 bins, 0.15)
+    with pytest.raises(ValueError, match="is on"):
+        tk.plane_sweep_diffs_occ(cur, lookup, occ, apply_occ.cpu(), M, t,
+                                 bins, 0.15)
+
+
 # (windows per image, images, window size, heads, shifted): Swin-T's
 # window, Swin-L's with a shift mask, and a ragged thread count
 @pytest.mark.parametrize("nm,images,ws,heads,shifted", [

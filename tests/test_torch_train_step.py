@@ -267,7 +267,7 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 
 @pytest.mark.parametrize("option", [
     {"temporal": True, "seg_cache_root": "cache"}, {"pareto": True},
-    {"method": "dynamicdepth"}, {"learn_ens": True}, {"remat": True}])
+    {"method": "dualrefine"}, {"learn_ens": True}, {"remat": True}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         make_train_step(torch_cfg(CFG).replace(**option), device="cpu",
