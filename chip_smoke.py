@@ -14,8 +14,10 @@ Phases, each of which must pass or the script exits non-zero:
    occlusion-aware volume, BF=14, D=96, 48x128x64, with black patches in
    the occlusion masks and the substitution on for some frames: also 0
    flipped occlusion decisions), K2 (`swin_attn_fused`) and K3
-   (`swin_mlp_fused`) at Swin-L stage 0 (shifted, 160 -> 168 padding, 56-window mask) and stage 3
-   (C = 1536) in bf16 and fp32, beside the port's unfused bf16 block, K4
+   (`swin_mlp_fused`) at the four stages of Swin-L (C = 192 / 384 / 768 /
+   1536; stages 0 and 1 shifted with their masks) in bf16 and fp32, beside
+   the port's unfused bf16 block, with the bf16 time of one fast step's 72
+   launches of each (with `--profile` also every bf16 call's kernels), K4
    (`window_attention`, stage 0), K5 (`ms_deform_attn_core`, batch 12, 2520
    queries, 8 heads of 32, levels 6x20 / 12x40 / 24x80, 4 points) and K5b
    (`deform_sample_fused`, the same work sample-major);
@@ -521,10 +523,17 @@ def k5_phase() -> dict:
             "library_ms": None}
 
 # Swin-L at 192x640 with window 12: stage -> (padded map, real map, C, heads,
-# whether odd blocks shift). A map one window high is not shifted.
+# whether odd blocks shift). `segment/swin.py`'s rule: a map pads to window
+# multiples, and is shifted only where both padded sides exceed one window.
 SWIN_L_STAGES = {0: ((48, 168), (48, 160), 192, 6, True),
+                 1: ((24, 84), (24, 80), 384, 12, True),
+                 2: ((12, 48), (12, 40), 768, 24, False),
                  3: ((12, 24), (6, 20), 1536, 48, False)}
 SWIN_WINDOW = 12
+# K2 / K3 launches per fast step by stage: blocks 2 / 2 / 18 / 2, times the
+# segmenter's 3 forwards a step (the current frame and two warped frames,
+# `train/step.py`); stages 0 and 1 time their shifted block for all
+SWIN_L_LAUNCHES = {0: 6, 1: 6, 2: 54, 3: 6}
 
 
 def _bound(n_bytes: float, n_ops: float, peak_flops: float) -> dict:
@@ -535,6 +544,40 @@ def _bound(n_bytes: float, n_ops: float, peak_flops: float) -> dict:
             "text": f"bound {max(bytes_ms, ops_ms):.4f} ms ({n_bytes / 1e6:.1f}"
                     f" MB -> {bytes_ms:.4f} ms, {n_ops / 1e9:.2f} GFLOP -> "
                     f"{ops_ms:.4f} ms)"}
+
+
+def _sub_kernel_ms(fn, reps: int = 5) -> list[tuple[str, float]]:
+    """Device time per call of each kernel fn() launches, in launch order,
+    from torch.profiler: [(kernel name, ms), ...]."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.name != "Buffer Flush"),
+                    key=lambda e: e.time_range.start)
+    names = [e.name.replace("(anonymous namespace)::", "").split("(")[0][:72]
+             for e in events]
+    if not events or len(events) % reps:
+        raise RuntimeError(f"{len(events)} kernel events over {reps} calls")
+    per = len(events) // reps
+    return [(names[i], sum(events[r * per + i].time_range.elapsed_us()
+                           for r in range(reps)) / reps / 1e3)
+            for i in range(per)]
+
+
+def _print_breakdown(what: str, parts: list[tuple[str, float]]) -> None:
+    lines = [f"{what} sub-kernels (torch.profiler, device ms per call):"]
+    lines += [f"  {i}. {name}: {ms:.4f}" for i, (name, ms) in enumerate(parts)]
+    lines.append(f"  sum {sum(ms for _, ms in parts):.4f}")
+    print("\n".join(lines))
 
 
 def _swin_block(stage: int):
@@ -591,10 +634,32 @@ def _swin_modes():
             ("fp32", torch.float32, PEAK_FP32_FLOPS))
 
 
-def k2_phase() -> dict:
-    """K2 at the two ends of Swin-L: stage 0 (shifted, the 56-window mask,
-    160 -> 168 padding) and stage 3 (C = 1536, unshifted, 6x20 -> 12x24),
-    in bf16 (stream and compute) and in fp32."""
+def _swin_summary(name: str, replaces: str, shapes: list[dict]) -> dict:
+    """The `kernels` entry of K2 or K3: stage 0 in bf16 (the fast path's
+    first block) as its headline, every stage and mode under `shapes`, and
+    the bf16 time of one fast step's launches, stage by stage."""
+    bf16 = [r for r in shapes if r["mode"] == "bf16"]
+    per_step = {k: sum(SWIN_L_LAUNCHES[r["stage"]] * r[k] for r in bf16)
+                for k in ("ms", "unfused_bf16_ms", "bound_ms")}
+    print(f"{name} per fast step (bf16, launches x ms over the four stages, "
+          f"{sum(SWIN_L_LAUNCHES.values())} launches): {per_step['ms']:.4f} ms;"
+          f" unfused bf16 {per_step['unfused_bf16_ms']:.4f} ms; bound "
+          f"{per_step['bound_ms']:.4f} ms")
+    main = shapes[0]
+    return {"name": name, "route": "cuda",
+            "source": "mal_tpu_torch/csrc/swin_block.cu",
+            "replaces": replaces,
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "unfused_bf16_ms": main["unfused_bf16_ms"],
+            "per_fast_step_ms": per_step, "shapes": shapes}
+
+
+def k2_phase(profile: bool = False) -> dict:
+    """K2 at the four stages of Swin-L (stages 0 and 1 shifted with their
+    masks, every map padded to window multiples), in bf16 (stream and
+    compute) and in fp32; with `profile`, each bf16 call's kernels."""
     import torch
     import torch.nn.functional as F
 
@@ -663,23 +728,21 @@ def k2_phase() -> dict:
                 row["unfused_bf16_ms"] = cuda_time_ms(unfused, 10)
                 gap = (unfused() - out.float()).abs().max().item()
                 text += (f", unfused bf16 (cuBLAS + K4) "
-                         f"{row['unfused_bf16_ms']:.4f} ms (max diff {gap:.2e})")
+                         f"{row['unfused_bf16_ms']:.4f} ms (max diff {gap:.2e})"
+                         f", {ms / row['unfused_bf16_ms']:.3f} of it")
+                if profile:
+                    _print_breakdown(f"K2 stage {stage} bf16",
+                                     _sub_kernel_ms(lambda: call(swin_attn_fused)))
             print(f"{text}; {bound['text']}")
             shapes.append(row)
-    main = shapes[0]    # stage 0 in bf16: the fast path's first block
-    return {"name": "swin_attn_fused", "route": "cuda",
-            "source": "mal_tpu_torch/csrc/swin_block.cu",
-            "replaces": "mal_tpu/ops/pallas/swin_block.py:170",
-            "max_abs_err": max(r["max_abs_err"] for r in shapes),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "unfused_bf16_ms": main["unfused_bf16_ms"],
-            "shapes": shapes}
+    return _swin_summary("swin_attn_fused",
+                         "mal_tpu/ops/pallas/swin_block.py:170", shapes)
 
 
-def k3_phase() -> dict:
-    """K3 at stage 0 (92,160 tokens of 192) and stage 3 (1,440 tokens of
-    1536) of Swin-L, in bf16 and in fp32."""
+def k3_phase(profile: bool = False) -> dict:
+    """K3 at the four stages of Swin-L (92,160 / 23,040 / 5,760 / 1,440
+    tokens of 192 / 384 / 768 / 1536), in bf16 and in fp32; with `profile`,
+    each bf16 call's kernels."""
     import torch
 
     from mal_tpu_torch.ops.cuda.swin_block import (swin_mlp_fused,
@@ -725,18 +788,15 @@ def k3_phase() -> dict:
                 row["unfused_bf16_ms"] = cuda_time_ms(unfused, 10)
                 gap = (unfused() - out.float()).abs().max().item()
                 text += (f", unfused bf16 (cuBLAS) "
-                         f"{row['unfused_bf16_ms']:.4f} ms (max diff {gap:.2e})")
+                         f"{row['unfused_bf16_ms']:.4f} ms (max diff {gap:.2e})"
+                         f", {ms / row['unfused_bf16_ms']:.3f} of it")
+                if profile:
+                    _print_breakdown(f"K3 stage {stage} bf16",
+                                     _sub_kernel_ms(lambda: call(swin_mlp_fused)))
             print(f"{text}; {bound['text']}")
             shapes.append(row)
-    main = shapes[0]
-    return {"name": "swin_mlp_fused", "route": "cuda",
-            "source": "mal_tpu_torch/csrc/swin_block.cu",
-            "replaces": "mal_tpu/ops/pallas/swin_block.py:364",
-            "max_abs_err": max(r["max_abs_err"] for r in shapes),
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "unfused_bf16_ms": main["unfused_bf16_ms"],
-            "shapes": shapes}
+    return _swin_summary("swin_mlp_fused",
+                         "mal_tpu/ops/pallas/swin_block.py:364", shapes)
 
 
 def k5b_phase() -> dict:
@@ -1142,7 +1202,8 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernels = [k1_phase(), k6_phase(), k2_phase(), k3_phase(), k4_phase(),
+    kernels = [k1_phase(), k6_phase(), k2_phase(args.profile),
+               k3_phase(args.profile), k4_phase(),
                k5_phase(), k5b_phase()]
     if args.kernels_only:
         print(json.dumps({"kernels": kernels}))

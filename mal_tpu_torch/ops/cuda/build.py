@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into `build/mal_tpu_torch_kernels/lib<name>-<hash>.so`
 under the repository root, then loaded with `ctypes`. The hash covers the
-source and the compiler flags, so an edited source is rebuilt and an
-unchanged one is reused. Builds happen at first use, never at import. A
-missing or failing `nvcc` is an error: there is no fallback.
+source, every `csrc/*.cuh` header and the compiler flags, so an edited
+source or header is rebuilt and an unchanged one is reused. Builds happen
+at first use, never at import. A missing or failing `nvcc` is an error:
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -40,9 +41,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from `csrc/<name>.cu` lives."""
-    digest = hashlib.sha256((SOURCE_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in [SOURCE_DIR / f"{name}.cu", *sorted(SOURCE_DIR.glob("*.cuh"))]:
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_libraries(names: list[str]) -> dict[str, str]:

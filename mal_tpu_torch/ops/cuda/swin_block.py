@@ -43,7 +43,7 @@ Tensor = torch.Tensor
 SOURCE = "swin_block"
 LN_EPS = 1e-6      # flax.linen.LayerNorm's default, which mal_tpu keeps
 _MAX_WINDOW = 16   # K and V of a 16x16 window fill 64 KB of shared memory
-_TILE_K = 32       # the GEMM tile depth: every product's inner size divides by it
+_TILE_K = 32       # the fp32 GEMM's tile depth: every product's sizes divide by it
 
 
 def _rounded(x: Tensor, dtype: torch.dtype) -> Tensor:
@@ -145,9 +145,20 @@ def _library() -> ctypes.CDLL:
         lib.swin_attn_fused.restype = i32
         lib.swin_mlp_fused.argtypes = [ptr] * 11 + [i32] * 5 + [ptr]
         lib.swin_mlp_fused.restype = i32
+        lib.swin_mlp_hidden.argtypes = [i32] * 4
+        lib.swin_mlp_hidden.restype = ctypes.c_longlong
         lib.swin_block_error_string.argtypes = [i32]
         lib.swin_block_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _scratch(n: int, dtype: torch.dtype, device) -> Tensor | None:
+    """n elements of kernel scratch, or None (a null pointer) for none."""
+    return torch.empty((n,), dtype=dtype, device=device) if n else None
+
+
+def _ptr(x: Tensor | None) -> int | None:
+    return None if x is None else x.data_ptr()
 
 
 def swin_attn_fused(xr: Tensor, valid: Tensor, ln_scale: Tensor,
@@ -192,23 +203,24 @@ def swin_attn_fused(xr: Tensor, valid: Tensor, ln_scale: Tensor,
                          f"windows of {N} tokens")
     M = B * Hp * Wp
     dev = xr.device
-    # scratch: the normalised tokens, qkv and the attention output in the
-    # compute type, and the weights rounded to bf16
-    y = torch.empty((M, C), dtype=compute_dtype, device=dev)
-    w16 = torch.empty((4 * C * C,), dtype=torch.bfloat16, device=dev)
-    qkv = torch.empty((M, 3 * C), dtype=compute_dtype, device=dev)
-    attn = torch.empty((M, C), dtype=compute_dtype, device=dev)
-    out = torch.empty_like(xr)
+    bf16 = compute_dtype == torch.bfloat16
     lib = _library()
     with torch.cuda.device(dev):
+        # scratch: the normalised tokens, qkv and the attention output in the
+        # compute type; the weights rounded to bf16 (bf16 compute only)
+        y = torch.empty((M, C), dtype=compute_dtype, device=dev)
+        w16 = _scratch(4 * C * C if bf16 else 0, torch.bfloat16, dev)
+        qkv = torch.empty((M, 3 * C), dtype=compute_dtype, device=dev)
+        attn = torch.empty((M, C), dtype=compute_dtype, device=dev)
+        out = torch.empty_like(xr)
         err = lib.swin_attn_fused(
             xr.data_ptr(), valid.data_ptr(), ln_scale.data_ptr(),
             ln_bias.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(),
-            table.data_ptr(), None if mask is None else mask.data_ptr(),
-            wproj.data_ptr(), bproj.data_ptr(), y.data_ptr(), w16.data_ptr(),
-            qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), B, Hp, Wp, C,
-            num_heads, ws, 1 if mask is None else mask.shape[0],
-            xr.dtype == torch.bfloat16, compute_dtype == torch.bfloat16,
+            table.data_ptr(), _ptr(mask), wproj.data_ptr(), bproj.data_ptr(),
+            y.data_ptr(), _ptr(w16), qkv.data_ptr(), attn.data_ptr(),
+            out.data_ptr(), B, Hp, Wp, C, num_heads, ws,
+            1 if mask is None else mask.shape[0],
+            xr.dtype == torch.bfloat16, bf16,
             torch.cuda.current_stream().cuda_stream)
     if err:
         msg = lib.swin_block_error_string(err).decode()
@@ -245,18 +257,22 @@ def swin_mlp_fused(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, w1: Tensor,
     for name, shape in want.items():
         if tuple(fp32[name].shape) != shape:
             raise ValueError(f"{name} {tuple(fp32[name].shape)} must be {shape}")
-    y = torch.empty((M, C), dtype=compute_dtype, device=x.device)
-    w16 = torch.empty((2 * hidden * C,), dtype=torch.bfloat16, device=x.device)
-    hid = torch.empty((M, hidden), dtype=compute_dtype, device=x.device)
-    out = torch.empty_like(x)
+    dev = x.device
+    bf16 = compute_dtype == torch.bfloat16
     lib = _library()
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(dev):
+        # scratch: the normalised tokens; the GELU hidden where fc1 and fc2
+        # are not fused; the weights rounded to bf16 (bf16 compute only)
+        y = torch.empty((M, C), dtype=compute_dtype, device=dev)
+        hid = _scratch(lib.swin_mlp_hidden(M, C, hidden, bf16), compute_dtype,
+                       dev)
+        w16 = _scratch(2 * hidden * C if bf16 else 0, torch.bfloat16, dev)
+        out = torch.empty_like(x)
         err = lib.swin_mlp_fused(
             x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            y.data_ptr(), w16.data_ptr(), hid.data_ptr(), out.data_ptr(), M, C,
-            hidden,
-            x.dtype == torch.bfloat16, compute_dtype == torch.bfloat16,
+            y.data_ptr(), _ptr(w16), _ptr(hid), out.data_ptr(),
+            M, C, hidden, x.dtype == torch.bfloat16, bf16,
             torch.cuda.current_stream().cuda_stream)
     if err:
         msg = lib.swin_block_error_string(err).decode()

@@ -233,11 +233,15 @@ def _close_in(dtype, out, plain):
 # (B, H, W, C, heads, window, shifted): Swin-T's window on a padded map with
 # a ragged row count, Swin-L's on a shifted and padded one, a wide block on
 # a map one window high, and a window size the tensor-core attention core is
-# not built for (in bf16 it takes the fp32 loop)
+# not built for (in bf16 it takes the fp32 loop); then Swin-L's stage 0 on a
+# map ragged both ways, with enough windows that a core block takes two heads
+# of one window (its mask staged once, the second head's q, k, v loaded while
+# the first is multiplied) and writes both back in stream order
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,W,C,heads,ws,shifted", [
     (3, 16, 24, 96, 3, 7, True), (2, 24, 40, 192, 6, 12, True),
-    (2, 6, 20, 768, 24, 12, False), (2, 10, 13, 64, 2, 5, True)])
+    (2, 6, 20, 768, 24, 12, False), (2, 10, 13, 64, 2, 5, True),
+    (4, 45, 161, 192, 6, 12, True)])
 def test_k2_matches_plain_version(cuda, B, H, W, C, heads, ws, shifted, dtype):
     p = {k: v.to(cuda) for k, v in _block_params(C, heads, ws, 4 * C, C).items()}
     Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
@@ -264,9 +268,14 @@ def test_k2_matches_plain_version(cuda, B, H, W, C, heads, ws, shifted, dtype):
 
 
 # (tokens, C): a ragged token count, a row count below one tile, Swin-L's
-# widest block
+# widest block; then, for the bf16 kernels, the fused MLP at each of its
+# widths (64, 192 on a ragged count of 128-token tiles, 256), the two-GEMM
+# form on the 192-wide GEMM tiles at C = 384 and at Swin-L's stage-3 size,
+# whose fc2 has fewer tiles (96) than the card has SMs
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("tokens,C", [(1000, 96), (77, 192), (300, 1536)])
+@pytest.mark.parametrize("tokens,C", [
+    (1000, 96), (77, 192), (300, 1536), (513, 64), (4099, 192), (600, 256),
+    (2000, 384), (1440, 1536)])
 def test_k3_matches_plain_version(cuda, tokens, C, dtype):
     p = {k: v.to(cuda) for k, v in _block_params(C, 1, 1, 4 * C, C).items()}
     x = torch.from_numpy(np.random.RandomState(C).randn(tokens, C)
