@@ -18,8 +18,11 @@ Phases, each of which must pass or the script exits non-zero:
    1536; stages 0 and 1 shifted with their masks) in bf16 and fp32, beside
    the port's unfused bf16 block, with the bf16 time of one fast step's 72
    launches of each (with `--profile` also every bf16 call's kernels), K4
-   (`window_attention`, stage 0), K5 (`ms_deform_attn_core`, batch 12, 2520
-   queries, 8 heads of 32, levels 6x20 / 12x40 / 24x80, 4 points) and K5b
+   (`window_attention`) at the same four stages in fp32 beside fp32 SDPA,
+   the shifted stages also without their masks, with the time of one fp32
+   hint step's 72 launches, K5 (`ms_deform_attn_core`, batch 12, 2520
+   queries, 8 heads of 32, levels 6x20 / 12x40 / 24x80, 4 points; also x 18
+   launches a step) and K5b
    (`deform_sample_fused`, the same work sample-major);
 4. small-input references, GPU against CPU (the plain PyTorch path): one
    training step and one `eval_forward` at 64x96; one temporal step at
@@ -401,6 +404,9 @@ def small_dynamic_reference_phase() -> None:
 
 
 def k4_phase() -> dict:
+    """K4 at the four stages of Swin-L in fp32 (stages 0 and 1 shifted with
+    their masks, and also timed without them), beside fp32 SDPA, with the
+    time of one fp32 hint step's launches."""
     import torch
     import torch.nn.functional as F
 
@@ -408,58 +414,82 @@ def k4_phase() -> dict:
         relative_position_index, window_attention, window_attention_reference)
     from mal_tpu_torch.segment.swin import shift_mask
 
-    # Swin-L stage 0 at 192x640, batch 12: the 48x160 map pads to 48x168,
-    # 4 x 14 = 56 windows of 12x12 per image, 6 heads of 32
-    images, heads, ws, Hp, Wp = 12, 6, 12, 48, 168
-    N, C = ws * ws, heads * 32
-    g = torch.Generator(device="cuda").manual_seed(4)
-    mask = shift_mask(Hp, Wp, ws, ws // 2, "cuda")
-    nm = mask.shape[0]
-    nW = images * nm
-    qkv = torch.randn((nW, N, 3 * C), generator=g, device="cuda")
-    table = 0.02 * torch.randn(((2 * ws - 1) ** 2, heads), generator=g,
-                               device="cuda")
-    out = window_attention(qkv, table, mask, heads)
-    torch.cuda.synchronize()
-    plain = window_attention_reference(qkv, table, mask, heads)
-    err = (out - plain).abs().max().item()
-    print(f"K4 window_attention at nW={nW} heads={heads} N={N} d=32 "
-          f"nm={nm}: max_abs_err={err:.3e} (atol {K4_ATOL})")
-    check(torch.isfinite(out).all().item(), "K4 output not finite")
-    check(err <= K4_ATOL, f"K4 disagrees with its plain version: {err}")
-
-    ms = cuda_time_ms(lambda: window_attention(qkv, table, mask, heads), 20)
-    plain_ms = cuda_time_ms(
-        lambda: window_attention_reference(qkv, table, mask, heads), 5)
-    # the library yardstick: one SDPA call on (nW, heads, N, d) q, k, v
-    # with the bias and mask added into one (nW, heads, N, N) mask
-    q, k, v = (t.reshape(nW, N, heads, 32).transpose(1, 2).contiguous()
-               for t in qkv.reshape(nW, N, 3, C).unbind(2))
+    images, ws = 12, SWIN_WINDOW
+    N = ws * ws
     idx = torch.from_numpy(relative_position_index(ws)).cuda()
-    bias = table[idx.reshape(-1)].reshape(N, N, heads).permute(2, 0, 1)
-    attn_mask = (bias[None] + mask[:, None]).repeat(images, 1, 1, 1)
-    lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
-    lib_err = (lib_out.transpose(1, 2).reshape(nW, N, C) - plain).abs().max()
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=attn_mask), 20)
-    # least bytes: qkv, table and mask read once, out written once
-    n_bytes = 4 * (qkv.numel() + table.numel() + mask.numel() + out.numel())
-    # operations: q k^T and p v (2 N^2 d multiply-adds each), and ~5 per
-    # score for bias, mask, max, exp, sum and the division
-    n_ops = nW * heads * (4 * N * N * 32 + 5 * N * N)
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    ops_ms = n_ops / PEAK_FP32_FLOPS * 1e3
-    print(f"K4 time {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f}"
-          f" ms (max diff to plain {lib_err.item():.2e}); bound "
-          f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes / 1e6:.1f} MB -> "
-          f"{bytes_ms:.4f} ms, {n_ops / 1e9:.2f} GFLOP -> {ops_ms:.4f} ms)")
+    shapes = []
+    for stage, ((Hp, Wp), _, C, heads, shifted) in SWIN_L_STAGES.items():
+        g = torch.Generator(device="cuda").manual_seed(4 + stage)
+        nm = (Hp // ws) * (Wp // ws)
+        nW = images * nm
+        mask = shift_mask(Hp, Wp, ws, ws // 2, "cuda") if shifted else None
+        qkv = torch.randn((nW, N, 3 * C), generator=g, device="cuda")
+        table = 0.02 * torch.randn(((2 * ws - 1) ** 2, heads), generator=g,
+                                   device="cuda")
+        out = window_attention(qkv, table, mask, heads)
+        torch.cuda.synchronize()
+        plain = window_attention_reference(qkv, table, mask, heads)
+        err = (out - plain).abs().max().item()
+        print(f"K4 window_attention stage {stage} at nW={nW} heads={heads} "
+              f"N={N} d=32{f' nm={nm}' if shifted else ', no mask'}: "
+              f"max_abs_err={err:.3e} (atol {K4_ATOL})")
+        check(torch.isfinite(out).all().item(), "K4 output not finite")
+        check(err <= K4_ATOL, f"K4 disagrees with its plain version at "
+              f"stage {stage}: {err}")
+        del plain
+
+        ms = cuda_time_ms(lambda: window_attention(qkv, table, mask, heads),
+                          20)
+        plain_ms = cuda_time_ms(
+            lambda: window_attention_reference(qkv, table, mask, heads), 3, 1)
+        # the library yardstick: one SDPA call on (nW, heads, N, d) q, k, v
+        # with the bias (and mask) added into one (nW, heads, N, N) mask
+        q, k, v = (t.reshape(nW, N, heads, 32).transpose(1, 2).contiguous()
+                   for t in qkv.reshape(nW, N, 3, C).unbind(2))
+        bias = table[idx.reshape(-1)].reshape(N, N, heads).permute(2, 0, 1)
+        per_window = bias[None] if mask is None else bias[None] + mask[:, None]
+        attn_mask = per_window.expand(nm, heads, N, N).repeat(images, 1, 1, 1)
+        lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
+        lib_err = (lib_out.transpose(1, 2).reshape(nW, N, C) - out).abs().max()
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask), 20)
+        del q, k, v, attn_mask, lib_out
+        text = ""
+        if mask is not None:
+            # the same call without the mask: what reading the mask costs
+            unmasked_ms = cuda_time_ms(
+                lambda: window_attention(qkv, table, None, heads), 20)
+            text = f", without the mask {unmasked_ms:.4f} ms"
+        # least bytes: qkv, table and mask read once, out written once
+        n_bytes = 4 * (qkv.numel() + table.numel() + out.numel()
+                       + (0 if mask is None else mask.numel()))
+        # operations: q k^T and p v (2 N^2 d multiply-adds each), and ~5 per
+        # score for bias, mask, max, exp, sum and the division
+        n_ops = nW * heads * (4 * N * N * 32 + 5 * N * N)
+        bound = _bound(n_bytes, n_ops, PEAK_FP32_FLOPS)
+        print(f"K4 stage {stage}: {ms:.4f} ms{text}, plain {plain_ms:.4f} ms,"
+              f" SDPA {library_ms:.4f} ms (max diff {lib_err.item():.2e}); "
+              f"{n_ops / ms / 1e9:.1f} TFLOP/s; {bound['text']}")
+        shapes.append({"stage": stage, "max_abs_err": err, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound["bound_ms"],
+                       "bound_by": bound["bound_by"]})
+        del qkv, out
+    per_step = {key: sum(SWIN_L_LAUNCHES[r["stage"]] * r[key] for r in shapes)
+                for key in ("ms", "library_ms", "bound_ms")}
+    print(f"K4 per fp32 hint step (launches x ms over the four stages, "
+          f"{sum(SWIN_L_LAUNCHES.values())} launches): {per_step['ms']:.4f} ms;"
+          f" SDPA {per_step['library_ms']:.4f} ms; bound "
+          f"{per_step['bound_ms']:.4f} ms")
+    main = shapes[0]
     return {"name": "window_attention", "route": "cuda",
             "source": "mal_tpu_torch/csrc/window_attention.cu",
             "replaces": "mal_tpu/ops/pallas/window_attention.py:64",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": library_ms}
+            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "per_fp32_step_ms": per_step,
+            "shapes": shapes}
 
 
 def k5_phase() -> dict:
@@ -514,6 +544,8 @@ def k5_phase() -> dict:
           f"{4 * n_samples} corners inside; bound {max(bytes_ms, ops_ms):.4f}"
           f" ms ({n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
           f"{n_ops / 1e9:.3f} GFLOP -> {ops_ms:.4f} ms)")
+    print(f"K5 per hint step (18 launches): {18 * ms:.4f} ms; bound "
+          f"{18 * max(bytes_ms, ops_ms):.4f} ms")
     return {"name": "ms_deform_attn_core", "route": "cuda",
             "source": "mal_tpu_torch/csrc/deform_sample.cu",
             "replaces": "mal_tpu/ops/pallas/deform_sample.py:174",

@@ -20,20 +20,56 @@
 // (31 MB), loc (23 MB) and aw (12 MB) read once and out (31 MB) written
 // once, about 97 MB or 0.029 ms at 3.35 TB/s, against under 1 GFLOP of
 // arithmetic. So it is bound by bytes, and in practice by the gathers: each
-// sample reads 4 corners of 128 bytes that the caches must serve.
+// sample reads 4 corners of 128 bytes. Served from L2 (the value tensor fits
+// it, but random locations leave L1 nothing to reuse), those 1.49 GB of
+// corners at the main-path shape take ~0.4 ms; served from shared memory,
+// whose rate is ~8x L2's, they need ~0.05 ms.
 //
-// Design (a first, simple kernel, the layout of the original MSDeformAttn
-// CUDA im2col kernel, written from the maths): one block per (b, q), one
-// thread per (head, channel). The 32 lanes of a warp share one (head,
-// sample): they read the sample's location and weight at one address (a
-// broadcast) and 32 consecutive channels of each corner, 128 contiguous
-// bytes. Out-of-range corners are skipped. The TPU kernel's separable
-// one-hot matmuls, query tiles and transposes are not carried over: Hopper
-// gathers directly.
+// Two kernels, chosen by the wrapper from the shapes:
+//
+// deform_sample_staged_kernel, where a (batch, head) slice of 8 channels
+// fits in shared memory (S x 8 x 4 bytes: 80.6 KB at the main-path shape,
+// two blocks an SM; up to 7,264 tokens). A 32-channel slice (322.6 KB) does
+// not fit, so the channels are split. A persistent grid walks the (batch,
+// head, channel group, query) space in contiguous ranges, so a block stages
+// a slice once for all of its queries that the range holds (3,665 units a
+// block at the main-path shape):
+// - staging: the slice's tokens (32 contiguous bytes each, 1 KB apart in
+//   device memory) by cp.async, one commit group per level, so the first
+//   round samples level 0 (6x20) while level 2 (24x80) still lands;
+// - sampling: a round is 256 consecutive queries, one a thread, which loads
+//   its query's locations and weights one level ahead and takes all 8
+//   channels, so that a sample's coordinates and corner weights are
+//   computed once a block; it reads the 4 corners from shared memory, where
+//   a token's 16-byte chunks are XOR-swizzled so that neighbouring tokens
+//   fall in distinct banks. A corner outside the map is skipped, as the
+//   gather kernel and grid_sample skip it, so a non-finite value there
+//   reaches no output. The arithmetic is the gather kernel's, operation for
+//   operation, so both give the same bits.
+// Sampling, not staging, holds it: at random locations the corners'
+// shared-memory reads are random, and the points' scattered loads take the
+// L1 one line a lane.
+//
+// deform_sample_kernel, the gather kernel, for slices that do not fit (or
+// channels that are not a multiple of 8): the layout of the original
+// MSDeformAttn CUDA im2col kernel, written from the maths: one block per
+// (b, q), one thread per (head, channel). The 32 lanes of a warp share one
+// (head, sample): they read the sample's location and weight at one address
+// (a broadcast) and 32 consecutive channels of each corner, 128 contiguous
+// bytes, from L2. Out-of-range corners are skipped.
+//
+// The TPU kernel's separable one-hot matmuls, query tiles and transposes are
+// not carried over: Hopper gathers directly.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
+#include "hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int kMaxLevels = 4;
 
@@ -94,6 +130,159 @@ __global__ void deform_sample_kernel(const float* __restrict__ value,
     }
   }
   out[static_cast<size_t>(bq) * row + threadIdx.x] = acc;
+}
+
+constexpr int kStagedThreads = 256;  // queries a round, one a thread
+constexpr int kStagedPoints = 4;     // the most points a level it takes
+constexpr int kStagedChannels = 8;   // channels of a staged slice
+
+// one level's sampling locations and weights of one query, in registers
+struct Points {
+  float x[kStagedPoints];
+  float y[kStagedPoints];
+  float a[kStagedPoints];
+};
+
+__device__ __forceinline__ void load_points(Points& pt,
+                                            const float* __restrict__ locs,
+                                            const float* __restrict__ wts,
+                                            int l, int P) {
+#pragma unroll
+  for (int p = 0; p < kStagedPoints; ++p) {
+    if (p < P) {
+      const int s = l * P + p;
+      pt.x[p] = __ldg(locs + 2 * s);
+      pt.y[p] = __ldg(locs + 2 * s + 1);
+      pt.a[p] = __ldg(wts + s);
+    }
+  }
+}
+
+// wait until at most n (0 to 3) of this thread's cp.async groups pend
+__device__ __forceinline__ void cp_async_wait_at_most(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// K5 from a slice staged in shared memory: a unit is one (slice, query),
+// slice = (b * heads + h) * (ch / 8) + channel group; `units` of them in
+// all, this block's a contiguous range.
+__global__ void __launch_bounds__(kStagedThreads)
+    deform_sample_staged_kernel(const float* __restrict__ value,
+                                const float* __restrict__ loc,
+                                const float* __restrict__ aw,
+                                float* __restrict__ out, Levels lv, int S,
+                                int Lq, int heads, int ch, int L, int P,
+                                long long units) {
+  // (S, 8): chunk c (4 channels) of token t at chunk c ^ ((t / 4) % kNv),
+  // so that 8 consecutive tokens cover all 32 banks
+  extern __shared__ __align__(16) float slice[];
+  constexpr int CG = kStagedChannels;
+  constexpr int kNv = CG / 4;  // float4s a token
+  const int groups = ch / CG;
+  const int LP = L * P;
+  const int row = heads * ch;  // floats between two value tokens
+  const long long begin = units * blockIdx.x / gridDim.x;
+  const long long end = units * (blockIdx.x + 1) / gridDim.x;
+  for (long long u = begin; u < end;) {
+    const long long sl = u / Lq;
+    const long long seg_end = end < (sl + 1) * Lq ? end : (sl + 1) * Lq;
+    const int cg = static_cast<int>(sl % groups);
+    const int h = static_cast<int>(sl / groups % heads);
+    const int b = static_cast<int>(sl / groups / heads);
+    __syncthreads();  // every thread is done with the slice before
+    const float* vb = value + static_cast<size_t>(b) * S * row + h * ch +
+                      cg * CG;
+    for (int l = 0; l < L; ++l) {  // one commit group a level
+      const int t0 = lv.start[l];
+      const int n = lv.h[l] * lv.w[l] * kNv;
+      for (int idx = threadIdx.x; idx < n; idx += kStagedThreads) {
+        const int t = t0 + idx / kNv;
+        const int c = idx % kNv;
+        cp_async_16(slice + t * CG + 4 * (c ^ ((t >> 2) & (kNv - 1))),
+                    vb + static_cast<size_t>(t) * row + 4 * c, true);
+      }
+      cp_async_commit();
+    }
+    bool first = true;
+    for (long long r = u; r < seg_end; r += kStagedThreads) {
+      const long long uq = r + threadIdx.x;
+      const bool valid = uq < seg_end;
+      const size_t bqh =
+          (static_cast<size_t>(b) * Lq + (uq - sl * Lq)) * heads + h;
+      const float* locs = loc + bqh * LP * 2;
+      const float* wts = aw + bqh * LP;
+      float acc[CG] = {};
+      // each level's points are loaded while the level before is sampled
+      Points cur, next;
+      if (valid) load_points(cur, locs, wts, 0, P);
+      for (int l = 0; l < L; ++l) {
+        if (valid && l + 1 < L) load_points(next, locs, wts, l + 1, P);
+        if (first) {  // level l has landed, for every thread's copies
+          cp_async_wait_at_most(L - 1 - l);
+          __syncthreads();
+        }
+        if (valid) {
+          const int hl = lv.h[l];
+          const int wl = lv.w[l];
+          const int start = lv.start[l];
+          const float4* vl = reinterpret_cast<const float4*>(slice) +
+                             start * kNv;
+#pragma unroll
+          for (int p = 0; p < kStagedPoints; ++p) {
+            if (p >= P) break;
+            const float x = cur.x[p] * wl - 0.5f;
+            const float y = cur.y[p] * hl - 0.5f;
+            const float a = cur.a[p];
+            const float x0f = floorf(x);
+            const float y0f = floorf(y);
+            const float wx1 = x - x0f;
+            const float wy1 = y - y0f;
+            const float wx0 = 1.f - wx1;
+            const float wy0 = 1.f - wy1;
+            const int x0 = static_cast<int>(fminf(fmaxf(x0f, -2.f), wl + 1.f));
+            const int y0 = static_cast<int>(fminf(fmaxf(y0f, -2.f), hl + 1.f));
+            float v[CG] = {};
+            // the gather kernel's sums, channel by channel
+            auto corner = [&](int yi, int xi, float wy, float wx) {
+              if (yi < 0 || yi >= hl || xi < 0 || xi >= wl) return;
+              const int t = yi * wl + xi;
+              const float w = wy * wx;
+              const int sw = (start + t) >> 2 & (kNv - 1);
+#pragma unroll
+              for (int c = 0; c < kNv; ++c) {
+                const float4 e = vl[t * kNv + (c ^ sw)];
+                v[4 * c] += w * e.x;
+                v[4 * c + 1] += w * e.y;
+                v[4 * c + 2] += w * e.z;
+                v[4 * c + 3] += w * e.w;
+              }
+            };
+            corner(y0, x0, wy0, wx0);
+            corner(y0, x0 + 1, wy0, wx1);
+            corner(y0 + 1, x0, wy1, wx0);
+            corner(y0 + 1, x0 + 1, wy1, wx1);
+#pragma unroll
+            for (int c = 0; c < CG; ++c) acc[c] += a * v[c];
+          }
+        }
+        cur = next;
+      }
+      first = false;
+      if (valid) {
+        float4* o = reinterpret_cast<float4*>(out + bqh * ch + cg * CG);
+#pragma unroll
+        for (int c = 0; c < kNv; ++c)
+          o[c] = make_float4(acc[4 * c], acc[4 * c + 1], acc[4 * c + 2],
+                             acc[4 * c + 3]);
+      }
+    }
+    u = seg_end;
+  }
 }
 
 // Kernel K5b: the same sampling in the sample-major layout of the TPU kernel
@@ -201,8 +390,8 @@ int deform_sample_major_f32(const float* vm0, const float* vm1,
 
 // value: (B, S, heads, ch); loc: (B, Lq, heads, L, P, 2); aw: (B, Lq, heads,
 // L, P); out: (B, Lq, heads * ch), all fp32 on the device. level_h / level_w
-// / level_start: L host ints each, L <= 4; heads * ch <= 1024. Launches on
-// `stream` and returns cudaGetLastError().
+// / level_start: L host ints each, L <= 4; heads * ch <= 1024. Launches the
+// gather kernel on `stream` and returns cudaGetLastError().
 int deform_sample_f32(const float* value, const float* loc, const float* aw,
                       float* out, const int* level_h, const int* level_w,
                       const int* level_start, int B, int S, int Lq, int heads,
@@ -217,6 +406,47 @@ int deform_sample_f32(const float* value, const float* loc, const float* aw,
   deform_sample_kernel<<<B * Lq, heads * ch, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       value, loc, aw, out, lv, S, Lq, heads, ch, L, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As deform_sample_f32, from slices of 8 channels staged in shared memory:
+// value 16-byte aligned, ch a multiple of 8, at most 4 points a level, and
+// S * 8 * 4 bytes within a block's shared memory.
+int deform_sample_staged_f32(const float* value, const float* loc,
+                             const float* aw, float* out, const int* level_h,
+                             const int* level_w, const int* level_start, int B,
+                             int S, int Lq, int heads, int ch, int L, int P,
+                             void* stream) {
+  if (L < 1 || L > kMaxLevels || P > kStagedPoints || ch % kStagedChannels)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Levels lv = {};
+  for (int l = 0; l < L; ++l) {
+    lv.h[l] = level_h[l];
+    lv.w[l] = level_w[l];
+    lv.start[l] = level_start[l];
+  }
+  auto kernel = deform_sample_staged_kernel;
+  const size_t smem = static_cast<size_t>(S) * kStagedChannels * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kStagedThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long units =
+      static_cast<long long>(B) * heads * (ch / kStagedChannels) * Lq;
+  const long long rounds = (units + kStagedThreads - 1) / kStagedThreads;
+  const int grid = static_cast<int>(
+      std::min<long long>(static_cast<long long>(sms) * per_sm, rounds));
+  kernel<<<grid, kStagedThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      value, loc, aw, out, lv, S, Lq, heads, ch, L, P, units);
   return static_cast<int>(cudaGetLastError());
 }
 

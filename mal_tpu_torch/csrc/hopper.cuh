@@ -1,10 +1,10 @@
-// Hopper building blocks for the port's kernels: mbarriers, TMA tile loads,
-// warpgroup matrix multiplies (wgmma) on 128-byte swizzled shared-memory
-// tiles, register reallocation between warpgroups, and the host-side TMA
-// descriptor. Every tile these helpers describe is K-major (the reduced
-// dimension contiguous), 64 bf16 = 128 bytes a row, written by TMA with
-// CU_TENSOR_MAP_SWIZZLE_128B and 1024-byte aligned, which is the layout
-// wgmma's 128-byte swizzle mode reads.
+// Hopper building blocks for the port's kernels: cp.async copies, mbarriers,
+// TMA tile loads, warpgroup matrix multiplies (wgmma) on 128-byte swizzled
+// shared-memory tiles, register reallocation between warpgroups, and the
+// host-side TMA descriptor. Every tile the TMA and wgmma helpers describe is
+// K-major (the reduced dimension contiguous), 64 bf16 = 128 bytes a row,
+// written by TMA with CU_TENSOR_MAP_SWIZZLE_128B and 1024-byte aligned,
+// which is the layout wgmma's 128-byte swizzle mode reads.
 #pragma once
 
 #include <cuda.h>
@@ -21,6 +21,33 @@ constexpr int kAtomBytes = 8 * kRowBytes;  // one swizzle period: 8 rows
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -------------------------------------------------------------- cp.async
+
+// 16 bytes global -> shared without passing registers; `real` false writes
+// zeros (source size 0) and reads nothing
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+                                            bool real) {
+  const int bytes = real ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ------------------------------------------------------------- mbarriers

@@ -192,28 +192,6 @@ __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            bool real) {
-  // 16 bytes global -> shared without passing registers; `real` false
-  // writes zeros (source size 0) and reads nothing
-  const int bytes = real ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // the first 1024-byte aligned address at or after p (TMA's 128-byte swizzle
 // repeats every 1024 bytes, and wgmma reads it from such a base)
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {

@@ -11,32 +11,70 @@
 // offsets 0, C, 2C; head h at h*32 inside each), the relative-position bias
 // *table* ((2ws-1)^2, heads) with the index computed here from the token
 // coordinates, and the shifted-window mask (nm, N, N) as the Swin stage builds
-// it. That mask is symmetric (-100 between tokens of different regions), so
-// the kernel reads mask[m][j][i] for query i and key j: lanes of consecutive
-// queries then read consecutive addresses. The output (nW, N, C) is the layout
-// the output projection takes.
+// it. The output (nW, N, C) is the layout the output projection takes.
 //
 // What bounds it on an H100 at stage 0 of Swin-L at 192x640, batch 12
 // (nW=672, 6 heads, N=144): about 11 GFLOP (q k^T and p v, 2 x 2 N^2 d per
 // window and head), 0.17 ms on the 67 TFLOP/s fp32 pipes, against about
 // 0.3 GB of traffic (qkv read once, out written once), 0.09 ms at 3.35 TB/s.
-// So it is bound by operations.
+// So it is bound by operations: the design keeps the fp32 pipes fed.
 //
-// Design (a first, simple kernel): one block per (window, head), one thread
-// per query row. K and V of the window and head sit in shared memory (2 x N
-// x 32 x 4 B = 36.9 KB at N=144) and every thread reads the same key row at
-// once, a broadcast; q stays in 32 registers, pre-scaled. Each thread runs
-// an online softmax over the N keys (running max, running sum, 32-wide
-// accumulator rescaled when the max grows), so no score leaves registers.
-// The Pallas kernel's head chunking (a VMEM planner) is not carried over.
+// Two kernels, chosen by the wrapper from the window size:
+//
+// window_attention_tiled_kernel, for 12x12 windows (every Swin-L stage). A
+// persistent grid, one block of 12 warps per SM, walks a contiguous range of
+// (window, head) pairs, ordered by mask slice (w % nm), then window, then
+// head, so that a block meets one or two mask slices. Per pair:
+// - q, k, v and the head's bias table column are staged by cp.async into one
+//   of two buffers while the block computes the pair before (k and v rows
+//   with their 16-byte chunks XOR-swizzled by (row / 4) % 8, so that the 16
+//   keys a warp reads at once fall in distinct bank quads);
+// - the shift mask is read from device memory once per mask slice that the
+//   block meets, not per head or window, and kept as bits (mask != 0) with
+//   its non-zero value, which lanes that find it write unordered: the value
+//   added to a score is then mask[w % nm, i, j] bit for bit. A precondition,
+//   not checked here: every non-zero entry of the mask holds one and the
+//   same value, as segment/swin.py:shift_mask's (0 and -100 only; the port's
+//   one producer of masks) do. A mask with two non-zero values gives a wrong
+//   answer, with no error;
+// - each warp takes 12 queries against all 144 keys: lane (lq, lk) holds
+//   queries lq + 2a (a < 6) x keys 4lk..4lk+3, 64+4lk..64+4lk+3, 128+lk, a
+//   register tile of 54 scores, built as outer products 4 channels at a
+//   time (6 q and 9 k float4 loads feed 216 FMAs);
+// - a two-pass softmax over each query's full row, as the Pallas kernel
+//   (mal_tpu/ops/pallas/window_attention.py:50-52): the max, one exp a
+//   score, the sum; the row's 16 lanes reduce by shuffles. No rescaling;
+// - p goes to the warp's shared memory, and p v runs register-blocked too:
+//   lane (ld, lq2, ks) holds 6 queries x 8 channels over a quarter of the
+//   keys (6 p and 8 v float4 loads feed 192 FMAs), and the quarters are
+//   reduced by shuffles. The output is divided by the row sum at the end.
+// 12 warps, not 9 of 16 queries: the 4 schedulers of an SM then take 3 warps
+// each, where 9 left one scheduler with 3 and the others waiting at each
+// pair's barrier.
+// Shared memory: 2 x 58.3 KB of staged inputs, 81 KB of p, the mask bits:
+// 203 KB, one block an SM.
+//
+// window_attention_kernel, for the other window sizes (7 in Swin-T, and any
+// ws <= 16): one block per (window, head), one thread per query, k and v in
+// shared memory, an online softmax over the keys in registers. It reads the
+// symmetric mask by columns (mask[m][j][i] for query i and key j), so that
+// lanes of consecutive queries read consecutive addresses.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
+
 constexpr int kD = 32;  // head width
+
+// ----------------------------------------------------------- any window
 
 __global__ void window_attention_kernel(const float* __restrict__ qkv,
                                         const float* __restrict__ table,
@@ -141,14 +179,355 @@ __global__ void window_attention_kernel(const float* __restrict__ qkv,
                           acc[4 * g + 2] * inv, acc[4 * g + 3] * inv);
 }
 
+// ----------------------------------------------------- 12x12 windows, tiled
+
+constexpr int kWs = 12;
+constexpr int kN = kWs * kWs;        // 144 tokens
+constexpr int kSpan = 2 * kWs - 1;   // 23
+constexpr int kTab = kSpan * kSpan;  // 529 rows of the bias table
+constexpr int kQw = 12;              // queries a warp
+constexpr int kQa = kQw / 2;         // queries a lane (two lanes share a key)
+constexpr int kWarps = kN / kQw;     // 12 warps, 3 on each scheduler
+constexpr int kThreads = 32 * kWarps;
+constexpr int kQld = kD + 4;         // q row stride: rows one bank quad apart
+constexpr int kBitWords = 8;         // mask words a query row, 5 used
+
+// One (window, head) pair's inputs. Chunk g (4 floats) of k or v row j sits
+// at chunk g ^ swz(j).
+struct Stage {
+  float q[kN * kQld];
+  float k[kN * kD];
+  float v[kN * kD];
+  float tab[kTab + 3];
+};
+
+struct TiledSmem {
+  Stage stage[2];
+  float p[kWarps][kQw * kN];       // each warp's probabilities, row-major
+  float inv_l[kN];                 // 1 / row sum, by query
+  // bit L of word c of query i's row: mask[i][4L + c] != 0 (keys 0-127),
+  // bit L of word 4: mask[i][128 + L]
+  uint32_t bits[kN * kBitWords];
+  float mask_value;                // the mask's non-zero value
+};
+
+__device__ __forceinline__ int swz(int row) { return (row >> 2) & 7; }
+
+// Pair p's window and head. Pairs run mask slice by mask slice (windows m,
+// m + nm, m + 2 nm, ...), each window's heads in turn, so that a block's
+// range of pairs holds few mask slices.
+__device__ __forceinline__ void pair_of(int p, int heads, int nm, int images,
+                                        int& w, int& h) {
+  const int per_slice = images * heads;
+  const int m = p / per_slice;
+  const int r = p - m * per_slice;
+  w = r / heads * nm + m;
+  h = r % heads;
+}
+
+// cp.async the inputs of window w, head h into `st`
+__device__ __forceinline__ void stage_pair(Stage& st,
+                                           const float* __restrict__ qkv,
+                                           const float* __restrict__ table,
+                                           int w, int h, int heads) {
+  const int C = heads * kD;
+  const float* base = qkv + static_cast<size_t>(w) * kN * 3 * C + h * kD;
+  for (int idx = threadIdx.x; idx < kN * (kD / 4); idx += kThreads) {
+    const int n = idx >> 3;
+    const int g = idx & 7;
+    const float* row = base + static_cast<size_t>(n) * 3 * C + 4 * g;
+    const int sg = 4 * (g ^ swz(n));
+    cp_async_16(st.q + n * kQld + 4 * g, row, true);
+    cp_async_16(st.k + n * kD + sg, row + C, true);
+    cp_async_16(st.v + n * kD + sg, row + 2 * C, true);
+  }
+  for (int idx = threadIdx.x; idx < kTab; idx += kThreads)
+    cp_async_4(st.tab + idx, table + idx * heads + h);
+}
+
+// the bits and the non-zero value of one window's (N, N) mask; each warp
+// loads all of its rows before it waits on any
+__device__ __forceinline__ void compact_mask(TiledSmem& sm,
+                                             const float* __restrict__ mw,
+                                             int warp, int lane) {
+  constexpr int kRows = kN / kWarps;
+  float4 rows[kRows];
+  float tails[kRows];
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const float* row = mw + (warp + r * kWarps) * kN;
+    rows[r] = reinterpret_cast<const float4*>(row)[lane];
+    tails[r] = lane < kN - 128 ? row[128 + lane] : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < kRows; ++r) {
+    const int i = warp + r * kWarps;
+    const float4 a = rows[r];
+    const float t = tails[r];
+    const uint32_t b0 = __ballot_sync(~0u, a.x != 0.f);
+    const uint32_t b1 = __ballot_sync(~0u, a.y != 0.f);
+    const uint32_t b2 = __ballot_sync(~0u, a.z != 0.f);
+    const uint32_t b3 = __ballot_sync(~0u, a.w != 0.f);
+    const uint32_t b4 = __ballot_sync(~0u, t != 0.f);
+    if (lane == 0) {
+      *reinterpret_cast<uint4*>(sm.bits + i * kBitWords) =
+          make_uint4(b0, b1, b2, b3);
+      sm.bits[i * kBitWords + 4] = b4;
+    }
+    const float nz = a.x != 0.f   ? a.x
+                     : a.y != 0.f ? a.y
+                     : a.z != 0.f ? a.z
+                     : a.w != 0.f ? a.w
+                                  : t;
+    if (nz != 0.f) sm.mask_value = nz;
+  }
+}
+
+// one warp's 12 queries of one staged pair; out points at the pair's
+// (window, head) corner of the output
+__device__ __forceinline__ void attend(TiledSmem& sm, Stage& st, bool masked,
+                                       float* __restrict__ out, int C,
+                                       float scale, int warp, int lane) {
+  const int q0 = kQw * warp;
+  float* qs = st.q + q0 * kQld;
+  // scale the warp's own q rows in place, as the plain version does
+#pragma unroll
+  for (int c = lane; c < kQw * (kD / 4); c += 32) {
+    float4* x = reinterpret_cast<float4*>(qs + (c >> 3) * kQld) + (c & 7);
+    *x = make_float4(x->x * scale, x->y * scale, x->z * scale, x->w * scale);
+  }
+  __syncwarp();
+
+  // scores: lane (lq, lk) holds queries lq + 2a x keys 4lk + c (kk = c),
+  // 64 + 4lk + c (kk = 4 + c) and 128 + lk (kk = 8)
+  const int lq = lane >> 4;
+  const int lk = lane & 15;
+  float s[kQa][9];
+#pragma unroll
+  for (int a = 0; a < kQa; ++a)
+#pragma unroll
+    for (int kk = 0; kk < 9; ++kk) s[a][kk] = 0.f;
+  const float* kA = st.k + 4 * lk * kD;          // keys 4lk.. (+64 rows: B)
+  const float* kT = st.k + (128 + lk) * kD;
+  const int swA = lk & 7;                        // swz of keys A and B
+  const int swT = lk >> 2;                       // swz of key 128 + lk
+#pragma unroll
+  for (int g = 0; g < kD / 4; ++g) {
+    float4 qv[kQa];
+#pragma unroll
+    for (int a = 0; a < kQa; ++a)
+      qv[a] = *reinterpret_cast<const float4*>(qs + (lq + 2 * a) * kQld +
+                                               4 * g);
+    const float* ka = kA + 4 * (g ^ swA);
+#pragma unroll
+    for (int kk = 0; kk < 9; ++kk) {
+      const float* kr = kk < 4   ? ka + kk * kD
+                        : kk < 8 ? ka + (60 + kk) * kD
+                                 : kT + 4 * (g ^ swT);
+      const float4 kv = *reinterpret_cast<const float4*>(kr);
+#pragma unroll
+      for (int a = 0; a < kQa; ++a) {
+        s[a][kk] = fmaf(qv[a].x, kv.x, s[a][kk]);
+        s[a][kk] = fmaf(qv[a].y, kv.y, s[a][kk]);
+        s[a][kk] = fmaf(qv[a].z, kv.z, s[a][kk]);
+        s[a][kk] = fmaf(qv[a].w, kv.w, s[a][kk]);
+      }
+    }
+  }
+
+  // + bias, + mask. Keys 4lk..4lk+3 (and 64 + the same) lie in one row of
+  // the window (12 is a multiple of 4), so their table rows are consecutive.
+  const int jB = 64 + 4 * lk;
+  const int jT = 128 + lk;
+  const int offA = (4 * lk / kWs) * kSpan + 4 * lk % kWs;
+  const int offB = (jB / kWs) * kSpan + jB % kWs;
+  const int offT = (jT / kWs) * kSpan + jT % kWs;
+  const float mv = sm.mask_value;
+#pragma unroll
+  for (int a = 0; a < kQa; ++a) {
+    const int i = q0 + lq + 2 * a;
+    const float* trow = st.tab + (i / kWs + kWs - 1) * kSpan + i % kWs +
+                        kWs - 1;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      s[a][c] += trow[-offA - c];
+      s[a][4 + c] += trow[-offB - c];
+    }
+    s[a][8] += trow[-offT];
+    if (masked) {
+      const uint4 wq = *reinterpret_cast<const uint4*>(sm.bits +
+                                                       i * kBitWords);
+      const uint32_t wc[4] = {wq.x >> lk, wq.y >> lk, wq.z >> lk,
+                              wq.w >> lk};
+      const uint32_t w4 = sm.bits[i * kBitWords + 4] >> lk;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (wc[c] & 1u) s[a][c] += mv;
+        if (wc[c] & 0x10000u) s[a][4 + c] += mv;
+      }
+      if (w4 & 1u) s[a][8] += mv;
+    }
+  }
+
+  // two-pass softmax over each row of 144, held by the 16 lanes of one lq
+  float* pw = sm.p[warp];
+#pragma unroll
+  for (int a = 0; a < kQa; ++a) {
+    float mx = s[a][0];
+#pragma unroll
+    for (int kk = 1; kk < 9; ++kk) mx = fmaxf(mx, s[a][kk]);
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(~0u, mx, o));
+    float l = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 9; ++kk) {
+      s[a][kk] = expf(s[a][kk] - mx);
+      l += s[a][kk];
+    }
+#pragma unroll
+    for (int o = 1; o < 16; o <<= 1) l += __shfl_xor_sync(~0u, l, o);
+    if (lk == 0) sm.inv_l[q0 + lq + 2 * a] = 1.f / l;
+    float* prow = pw + (lq + 2 * a) * kN;
+    *reinterpret_cast<float4*>(prow + 4 * lk) =
+        make_float4(s[a][0], s[a][1], s[a][2], s[a][3]);
+    *reinterpret_cast<float4*>(prow + 64 + 4 * lk) =
+        make_float4(s[a][4], s[a][5], s[a][6], s[a][7]);
+    prow[128 + lk] = s[a][8];
+  }
+  __syncwarp();
+
+  // p v: lane (ld, lq2, ks) sums queries lq2 + 2a (a < 6) x channels
+  // 8ld..8ld+7 over the keys 4c..4c+3 of the chunks c = 4t + ks
+  const int ks = lane & 3;
+  const int lq2 = (lane >> 2) & 1;
+  const int ld = lane >> 3;
+  float acc[kQa][8];
+#pragma unroll
+  for (int a = 0; a < kQa; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.f;
+  const float* pq = pw + lq2 * kN;
+#pragma unroll 3
+  for (int t = 0; t < kN / 16; ++t) {
+    const int c = 4 * t + ks;
+    float4 pv[kQa];
+#pragma unroll
+    for (int a = 0; a < kQa; ++a)
+      pv[a] = *reinterpret_cast<const float4*>(pq + 2 * a * kN + 4 * c);
+    const int sw = c & 7;  // swz of rows 4c..4c+3
+    const float4* v0 = reinterpret_cast<const float4*>(st.v + 4 * c * kD) +
+                       ((2 * ld) ^ sw);
+    const float4* v1 = reinterpret_cast<const float4*>(st.v + 4 * c * kD) +
+                       ((2 * ld + 1) ^ sw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float4 x = v0[e * (kD / 4)];
+      const float4 y = v1[e * (kD / 4)];
+#pragma unroll
+      for (int a = 0; a < kQa; ++a) {
+        const float p = e == 0 ? pv[a].x : e == 1 ? pv[a].y
+                                 : e == 2 ? pv[a].z : pv[a].w;
+        acc[a][0] = fmaf(p, x.x, acc[a][0]);
+        acc[a][1] = fmaf(p, x.y, acc[a][1]);
+        acc[a][2] = fmaf(p, x.z, acc[a][2]);
+        acc[a][3] = fmaf(p, x.w, acc[a][3]);
+        acc[a][4] = fmaf(p, y.x, acc[a][4]);
+        acc[a][5] = fmaf(p, y.y, acc[a][5]);
+        acc[a][6] = fmaf(p, y.z, acc[a][6]);
+        acc[a][7] = fmaf(p, y.w, acc[a][7]);
+      }
+    }
+  }
+
+  // sum the four key quarters: lane ks keeps queries a in 3 hb.. and
+  // channels 4 lb.. of its 6 x 8 tile
+  constexpr int kHalf = kQa / 2;
+  const bool hb = ks & 2;
+  const bool lb = ks & 1;
+  float r[kHalf][8];
+#pragma unroll
+  for (int a = 0; a < kHalf; ++a)
+#pragma unroll
+    for (int b = 0; b < 8; ++b) {
+      const float send = hb ? acc[a][b] : acc[kHalf + a][b];
+      const float keep = hb ? acc[kHalf + a][b] : acc[a][b];
+      r[a][b] = keep + __shfl_xor_sync(~0u, send, 2);
+    }
+#pragma unroll
+  for (int a = 0; a < kHalf; ++a) {
+    float o[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const float send = lb ? r[a][b] : r[a][4 + b];
+      const float keep = lb ? r[a][4 + b] : r[a][b];
+      o[b] = keep + __shfl_xor_sync(~0u, send, 1);
+    }
+    const int i = q0 + lq2 + 2 * (kHalf * hb + a);
+    const float il = sm.inv_l[i];
+    *reinterpret_cast<float4*>(out + static_cast<size_t>(i) * C + 8 * ld +
+                               4 * lb) =
+        make_float4(o[0] * il, o[1] * il, o[2] * il, o[3] * il);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    window_attention_tiled_kernel(const float* __restrict__ qkv,
+                                  const float* __restrict__ table,
+                                  const float* __restrict__ mask,
+                                  float* __restrict__ out, int pairs,
+                                  int heads, int nm, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TiledSmem& sm = *reinterpret_cast<TiledSmem*>(smem_raw);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int C = heads * kD;
+  // a contiguous range of (window, head) pairs, heads of one window in turn
+  const int begin = static_cast<int>(static_cast<long long>(pairs) *
+                                     blockIdx.x / gridDim.x);
+  const int end = static_cast<int>(static_cast<long long>(pairs) *
+                                   (blockIdx.x + 1) / gridDim.x);
+  if (begin >= end) return;
+
+  const int images = pairs / (heads * nm);
+  int w, h;
+  pair_of(begin, heads, nm, images, w, h);
+  stage_pair(sm.stage[0], qkv, table, w, h, heads);
+  cp_async_commit();
+  int held = -1;  // the mask slice held as bits
+  for (int p = begin; p < end; ++p) {
+    const int slot = (p - begin) & 1;
+    // the other buffer was last read before the barrier that ended the
+    // previous pair
+    if (p + 1 < end) {
+      int wn, hn;
+      pair_of(p + 1, heads, nm, images, wn, hn);
+      stage_pair(sm.stage[slot ^ 1], qkv, table, wn, hn, heads);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this pair's copies have landed
+    __syncthreads();
+    pair_of(p, heads, nm, images, w, h);
+    if (mask != nullptr && w % nm != held) {
+      held = w % nm;
+      compact_mask(sm, mask + static_cast<size_t>(held) * kN * kN, warp, lane);
+      __syncthreads();
+    }
+    attend(sm, sm.stage[slot], mask != nullptr,
+           out + static_cast<size_t>(w) * kN * C + h * kD, C, scale, warp,
+           lane);
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // qkv: (nW, N, 3 * heads * 32) fp32, 16-byte aligned; table: ((2ws-1)^2,
 // heads); mask: (nm, N, N) symmetric shift mask, or null; out: (nW, N,
-// heads * 32). ws <= 16. All on the device. Launches on `stream`
-// and returns cudaGetLastError().
+// heads * 32). ws <= 16. All on the device. Launches the loop kernel on
+// `stream` and returns cudaGetLastError().
 int window_attention_f32(const float* qkv, const float* table,
                          const float* mask, float* out, int nW, int heads,
                          int ws, int nm, void* stream) {
@@ -165,6 +544,31 @@ int window_attention_f32(const float* qkv, const float* table,
   window_attention_kernel<<<grid, block, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       qkv, table, mask, out, heads, ws, nm,
+      static_cast<float>(1.0 / sqrt(static_cast<double>(kD))));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As window_attention_f32, for ws = 12 only: launches the tiled kernel. The
+// mask (if any) is 16-byte aligned and, a precondition this does not check,
+// holds 0 and one non-zero value only, as shift_mask's do.
+int window_attention_tiled_f32(const float* qkv, const float* table,
+                               const float* mask, float* out, int nW,
+                               int heads, int ws, int nm, void* stream) {
+  if (ws != kWs) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(TiledSmem);
+  cudaError_t err = cudaFuncSetAttribute(
+      window_attention_tiled_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int pairs = nW * heads;
+  window_attention_tiled_kernel<<<std::min(pairs, sms), kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      qkv, table, mask, out, pairs, heads, nm,
       static_cast<float>(1.0 / sqrt(static_cast<double>(kD))));
   return static_cast<int>(cudaGetLastError());
 }

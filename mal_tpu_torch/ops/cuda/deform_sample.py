@@ -9,7 +9,11 @@ bounds it and how it is laid out.
 - `ms_deform_attn_core`: the kernel's wrapper. For CUDA tensors it checks
   them and launches the kernel, counting each launch in
   `ms_deform_attn_core.launches`; for CPU tensors it returns the plain
-  version. It never falls back from the kernel to the plain version.
+  version. It never falls back from the kernel to the plain version. K5 has
+  two kernels, and `staged_channels` picks one from the shapes before the
+  launch: the staged kernel, which samples from a (batch, head) slice of 8
+  channels held in shared memory, wherever such a slice fits; the gather
+  kernel, which samples from device memory, elsewhere.
 - `ms_deform_attn_core_per_level`: the plain PyTorch version, one
   `grid_sample` per level (`mal_tpu/segment/msdeform.py:27-52`).
 - `deform_sample_fused` (kernel K5b) and `deform_sample_fused_reference`:
@@ -38,6 +42,22 @@ Tensor = torch.Tensor
 
 SOURCE = "deform_sample"
 _MAX_LEVELS = 4
+# shared memory a block may take on an H100 (sm_90): 227 KB
+_SMEM_BYTES = 232448
+_STAGED_POINTS = 4  # the most points a level the staged kernel takes
+_STAGED_CHANNELS = 8  # channels of a slice the staged kernel holds
+
+
+def staged_channels(tokens: int, ch: int, points: int) -> int | None:
+    """Channels a block of K5's staged kernel takes from a (batch, head)
+    slice of `tokens` value tokens of `ch` channels: 8, where `ch` is a
+    multiple of 8, the slice fits in a block's shared memory (up to 7,264
+    tokens) and a level has at most 4 `points`; else None, and the gather
+    kernel runs."""
+    if (points > _STAGED_POINTS or ch % _STAGED_CHANNELS
+            or tokens * _STAGED_CHANNELS * 4 > _SMEM_BYTES):
+        return None
+    return _STAGED_CHANNELS
 
 
 def ms_deform_attn_core_per_level(value: Tensor,
@@ -106,6 +126,8 @@ def _library() -> ctypes.CDLL:
                        + [ctypes.POINTER(ctypes.c_int)] * 3
                        + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.deform_sample_staged_f32.argtypes = fn.argtypes
+        lib.deform_sample_staged_f32.restype = ctypes.c_int
         lib.deform_sample_major_f32.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
@@ -136,14 +158,19 @@ def ms_deform_attn_core(value: Tensor, spatial_shapes: list[tuple[int, int]],
         starts.append(starts[-1] + h * w)
     ints = ctypes.c_int * L
     lib = _library()
+    staged = staged_channels(S, C, P) is not None
+    if staged and value.data_ptr() % 16:
+        raise ValueError("value must be 16-byte aligned")
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.deform_sample_f32(
-            value.data_ptr(), sampling_locations.data_ptr(),
-            attention_weights.data_ptr(), out.data_ptr(),
-            ints(*(h for h, _ in spatial_shapes)),
-            ints(*(w for _, w in spatial_shapes)), ints(*starts),
-            B, S, Lq, H_, C, L, P, stream)
+        args = (value.data_ptr(), sampling_locations.data_ptr(),
+                attention_weights.data_ptr(), out.data_ptr(),
+                ints(*(h for h, _ in spatial_shapes)),
+                ints(*(w for _, w in spatial_shapes)), ints(*starts),
+                B, S, Lq, H_, C, L, P)
+        launch = (lib.deform_sample_staged_f32 if staged
+                  else lib.deform_sample_f32)
+        err = launch(*args, stream)
     if err:
         msg = lib.deform_sample_error_string(err).decode()
         raise RuntimeError(f"ms_deform_attn_core launch failed: {msg} ({err})")

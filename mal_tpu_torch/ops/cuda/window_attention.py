@@ -15,9 +15,19 @@ and how it is laid out.
 
 Both take the bias as the relative-position table plus the shifted-window
 mask, not as `mal_tpu`'s pre-added (nm, h, N, N) `bias_all`: the kernel
-indexes the table itself, which saves building and reading that tensor. The
-mask must be symmetric, as the shift mask is (`segment/swin.py:shift_mask`):
-the kernel reads it by columns, which are its rows.
+indexes the table itself, which saves building and reading that tensor.
+
+Preconditions on the mask, which the wrapper does not check (a check would
+read the mask back to the host on every call): it is what
+`segment/swin.py:shift_mask` makes, the port's one producer of masks, so
+it is symmetric (the loop kernel reads it by columns, which are its rows)
+and holds 0 and one non-zero value only (-100; the tiled kernel keeps it as
+bits and that one value). Any other mask gives a wrong answer on a CUDA
+tensor, with no error; the plain version takes any mask.
+
+The source has two kernels, and the wrapper picks one by the window size:
+the tiled kernel for 12x12 windows (`TILED_WINDOW`, every Swin-L stage),
+the loop kernel for any other (Swin-T's 7x7).
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ Tensor = torch.Tensor
 SOURCE = "window_attention"
 HEAD_DIM = 32      # the kernel's head width, Swin's at every size
 _MAX_WINDOW = 16   # K and V of a 16x16 window fill 64 KB of shared memory
+TILED_WINDOW = 12  # the window size the tiled kernel is built for
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -98,8 +109,8 @@ def _check(qkv: Tensor, table: Tensor, mask: Tensor | None,
                              or nW % mask.shape[0]):
         raise ValueError(f"mask {tuple(mask.shape)} does not fit {nW} "
                          f"windows of {N} tokens")
-    if qkv.data_ptr() % 16:
-        raise ValueError("qkv must be 16-byte aligned")
+    if qkv.data_ptr() % 16 or (mask is not None and mask.data_ptr() % 16):
+        raise ValueError("qkv and mask must be 16-byte aligned")
     return ws
 
 
@@ -107,10 +118,11 @@ def _library() -> ctypes.CDLL:
     from mal_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library(SOURCE)
-    fn = lib.window_attention_f32
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.window_attention_f32.argtypes is None:
+        for fn in (lib.window_attention_f32, lib.window_attention_tiled_f32):
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         lib.window_attention_error_string.argtypes = [ctypes.c_int]
         lib.window_attention_error_string.restype = ctypes.c_char_p
     return lib
@@ -119,8 +131,8 @@ def _library() -> ctypes.CDLL:
 def window_attention(qkv: Tensor, table: Tensor, mask: Tensor | None,
                      num_heads: int) -> Tensor:
     """Window attention (nW, N, C); arguments as
-    `window_attention_reference`. CUDA tensors go to the kernel, CPU
-    tensors to the plain version."""
+    `window_attention_reference`, the mask as the module's preconditions
+    say. CUDA tensors go to the kernel, CPU tensors to the plain version."""
     if qkv.device.type == "cpu":
         return window_attention_reference(qkv, table, mask, num_heads)
     if qkv.device.type != "cuda":
@@ -130,9 +142,11 @@ def window_attention(qkv: Tensor, table: Tensor, mask: Tensor | None,
     out = torch.empty((nW, N, C3 // 3), dtype=torch.float32, device=qkv.device)
     nm = 1 if mask is None else mask.shape[0]
     lib = _library()
+    launch = (lib.window_attention_tiled_f32 if ws == TILED_WINDOW
+              else lib.window_attention_f32)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.window_attention_f32(
+        err = launch(
             qkv.data_ptr(), table.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             nW, num_heads, ws, nm, stream)

@@ -130,25 +130,58 @@ def test_k6_wrapper_rejects_what_the_kernel_does_not_take(cuda):
                                  bins, 0.15)
 
 
-# (windows per image, images, window size, heads, shifted): Swin-T's
-# window, Swin-L's with a shift mask, and a ragged thread count
-@pytest.mark.parametrize("nm,images,ws,heads,shifted", [
-    (1, 5, 7, 3, False), (4, 3, 12, 6, True), (4, 2, 5, 2, True)])
-def test_k4_matches_plain_version(cuda, nm, images, ws, heads, shifted):
-    rng = np.random.RandomState(ws)
-    N = ws * ws
+def _k4_case(cuda, Hp, Wp, images, ws, heads, shifted, seed):
+    """Seeded K4 inputs for `images` maps of Hp x Wp in ws x ws windows."""
+    rng = np.random.RandomState(seed)
+    N, nm = ws * ws, (Hp // ws) * (Wp // ws)
     qkv = torch.from_numpy(rng.randn(nm * images, N, 3 * heads * 32)
                            .astype(np.float32)).to(cuda)
     table = torch.from_numpy((0.1 * rng.randn((2 * ws - 1) ** 2, heads))
                              .astype(np.float32)).to(cuda)
-    mask = shift_mask(2 * ws, 2 * ws, ws, ws // 2, cuda) if shifted else None
+    mask = shift_mask(Hp, Wp, ws, ws // 2, cuda) if shifted else None
+    return qkv, table, mask
+
+
+def _k4_check(qkv, table, mask, heads):
     before = k4.window_attention.launches
     out = k4.window_attention(qkv, table, mask, heads)
     assert k4.window_attention.launches == before + 1
     plain = k4.window_attention_reference(qkv, table, mask, heads)
     torch.cuda.synchronize()
-    # outputs of O(1): an online softmax and 32-wide sums in another order
+    # outputs of O(1): softmax sums and 32-wide products in another order
     torch.testing.assert_close(out, plain, rtol=0, atol=2e-5)
+
+
+# (windows per image, images, window size, heads, shifted): Swin-T's window
+# (the loop kernel) with and without a mask, Swin-L's (the tiled kernel)
+# with and without one, and a window of 25 tokens (a ragged warp)
+@pytest.mark.parametrize("nm,images,ws,heads,shifted", [
+    (1, 5, 7, 3, False), (4, 3, 12, 6, True), (4, 2, 5, 2, True),
+    (4, 2, 7, 3, True), (1, 3, 12, 4, False), (1, 3, 5, 2, False)])
+def test_k4_matches_plain_version(cuda, nm, images, ws, heads, shifted):
+    side = ws if nm == 1 else 2 * ws
+    _k4_check(*_k4_case(cuda, side, side, images, ws, heads, shifted, ws),
+              heads)
+
+
+# the four Swin-L stages at 192x640 (padded maps, heads, shifted), at one
+# and two images: one block of the tiled kernel takes several heads of one
+# window, and its range of (window, head) pairs starts and ends mid-window
+@pytest.mark.parametrize("images", [1, 2])
+@pytest.mark.parametrize("Hp,Wp,heads,shifted", [
+    (48, 168, 6, True), (24, 84, 12, True), (12, 48, 24, False),
+    (12, 24, 48, False)])
+def test_k4_at_the_swin_l_stages(cuda, Hp, Wp, heads, shifted, images):
+    assert k4.TILED_WINDOW == 12
+    _k4_check(*_k4_case(cuda, Hp, Wp, images, 12, heads, shifted, heads),
+              heads)
+
+
+def test_k4_adds_the_masks_own_value(cuda):
+    """The tiled kernel keeps the mask as bits and its one non-zero value:
+    a mask of -50 is added as -50."""
+    qkv, table, mask = _k4_case(cuda, 24, 24, 2, 12, 3, True, 0)
+    _k4_check(qkv, table, 0.5 * mask, 3)
 
 
 def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
@@ -162,14 +195,22 @@ def test_k4_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         k4.window_attention(qkv.transpose(0, 1), table, None, 2)
 
 
-# (B, Lq, heads, ch, levels, points): a small set with 4 levels and 8-wide
-# channels, and the pixel decoder's 3 levels x 4 points at 32 channels
-@pytest.mark.parametrize("B,Lq,heads,ch,shapes,P", [
-    (2, 37, 4, 8, [(6, 10), (3, 5), (2, 3), (1, 2)], 2),
-    (2, 600, 8, 32, [(6, 20), (12, 40), (24, 80)], 4)])
-def test_k5_matches_plain_version(cuda, B, Lq, heads, ch, shapes, P):
+# (B, Lq, heads, ch, levels, points, channels a staged block takes): a small
+# set with 4 levels and 8-wide channels, the pixel decoder's 3 levels x 4
+# points at 32 channels on 600 queries and at the main path's 2520 (at B =
+# 2; neither a multiple of a round's 256 queries, kStagedThreads), and two
+# slices too large for shared memory at 8 channels (10,240 and 16,384
+# tokens): the gather kernel
+@pytest.mark.parametrize("B,Lq,heads,ch,shapes,P,plan", [
+    (2, 37, 4, 8, [(6, 10), (3, 5), (2, 3), (1, 2)], 2, 8),
+    (2, 600, 8, 32, [(6, 20), (12, 40), (24, 80)], 4, 8),
+    (2, 2520, 8, 32, [(6, 20), (12, 40), (24, 80)], 4, 8),
+    (1, 300, 2, 8, [(64, 128), (32, 64)], 4, None),
+    (1, 50, 2, 8, [(128, 128)], 2, None)])
+def test_k5_matches_plain_version(cuda, B, Lq, heads, ch, shapes, P, plan):
     rng = np.random.RandomState(Lq)
     L, S = len(shapes), sum(h * w for h, w in shapes)
+    assert k5.staged_channels(S, ch, P) == plan
     value = torch.from_numpy(rng.randn(B, S, heads, ch).astype(np.float32))
     locs = torch.from_numpy(rng.uniform(-0.2, 1.2, (B, Lq, heads, L, P, 2))
                             .astype(np.float32))
@@ -185,6 +226,34 @@ def test_k5_matches_plain_version(cuda, B, Lq, heads, ch, shapes, P):
     # grid_sample's ((2x - 1 + 1) * w - 1) / 2) move bilinear weights by
     # ~1e-7 relative of the coordinate, on values of O(1) summed over up
     # to 32 samples
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-4)
+
+
+def test_k5_skips_corners_outside_the_map(cuda):
+    """A corner outside a level's map adds nothing, as in grid_sample: a
+    non-finite value at a token that no sample takes as an inside corner
+    (each level's first, top left) reaches no output."""
+    rng = np.random.RandomState(5)
+    shapes = [(6, 20), (12, 40), (24, 80)]
+    B, Lq, heads, ch, L, P = 1, 300, 8, 32, 3, 4
+    S = sum(h * w for h, w in shapes)
+    assert k5.staged_channels(S, ch, P) == 8
+    value = rng.randn(B, S, heads, ch).astype(np.float32)
+    start = 0
+    for lvl, (h, w) in enumerate(shapes):
+        value[:, start] = (np.inf, np.nan, -np.inf)[lvl]
+        start += h * w
+    # x * w - 0.5 >= 3 and y * h - 0.5 >= 1 at every level: token 0 is
+    # never a corner, and the corners past the far edges are outside
+    locs = rng.uniform(0.6, 1.3, (B, Lq, heads, L, P, 2)).astype(np.float32)
+    aw = rng.uniform(0, 1, (B, Lq, heads, L, P)).astype(np.float32)
+    args = [torch.from_numpy(value).to(cuda), shapes,
+            torch.from_numpy(locs).to(cuda), torch.from_numpy(aw).to(cuda)]
+    out = k5.ms_deform_attn_core(*args)
+    plain = k5.ms_deform_attn_core_per_level(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(plain).all()
+    assert torch.isfinite(out).all()
     torch.testing.assert_close(out, plain, rtol=0, atol=1e-4)
 
 
