@@ -13,9 +13,12 @@ Phases, each of which must pass or the script exits non-zero:
    D=96, 48x160x64), K6 (`plane_sweep_diffs_occ`, DynamicDepth's
    occlusion-aware volume, BF=14, D=96, 48x128x64, with black patches in
    the occlusion masks and the substitution on for some frames: also 0
-   flipped occlusion decisions), K2 (`swin_attn_fused`) and K3
-   (`swin_mlp_fused`) at the four stages of Swin-L (C = 192 / 384 / 768 /
-   1536; stages 0 and 1 shifted with their masks) in bf16 and fp32, beside
+   flipped occlusion decisions; K1 and K6 also print the share of their
+   tiles on each route, as the kernel counts them, which must equal
+   `plane_sweep_routes`' mirror, and their registers and spills), K2
+   (`swin_attn_fused`) and K3 (`swin_mlp_fused`) at the four stages of
+   Swin-L (C = 192 / 384 / 768 / 1536; stages 0 and 1 shifted with their
+   masks) in bf16 and fp32, beside
    the port's unfused bf16 block, with the bf16 time of one fast step's 72
    launches of each (with `--profile` also every bf16 call's kernels), K4
    (`window_attention`) at the same four stages in fp32 beside fp32 SDPA,
@@ -191,6 +194,53 @@ def k1_inputs(device="cuda", BF=12, h=48, w=160, C=64, D=96, seed=0):
         t.reshape(BF, 3), bins)]
 
 
+def ptxas_usage(source: str, fragment: str) -> list[str]:
+    """Registers and spills, from the `-Xptxas -v` build log of
+    csrc/<source>.cu, of each kernel whose mangled name holds `fragment`."""
+    import re
+
+    from mal_tpu_torch.ops.cuda import build
+
+    log = build.library_path(source).with_suffix(".log").read_text()
+    found, name, spill = [], None, "spill not reported"
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name and fragment in name:
+            spill = f"spill {m.group(1)} / {m.group(2)} bytes"
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and fragment in name:
+            found.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return found
+
+
+def plane_sweep_report(tag: str, routes, M, t, bins, h: int, w: int, C: int,
+                       occ: bool) -> None:
+    """Print the share of K1's (occ: K6's) tiles on each route, as the
+    kernel counted them, and the kernel's registers and spills; the counts
+    must equal `plane_sweep_routes`' mirror of the kernel's decision."""
+    from mal_tpu_torch.ops.cuda.cost_volume_kernel import (ROUTES,
+                                                           plane_sweep_routes)
+
+    got = dict(zip(ROUTES, routes.tolist()))
+    want = plane_sweep_routes(M, t, bins, h, w, C, occ=occ)
+    total = sum(got.values())
+    full = got["staged"] + got["direct"]
+    print(f"{tag} tiles by route: " + ", ".join(
+        f"{r} {n} ({n / total:.4f})" for r, n in got.items())
+        + f"; direct {got['direct'] / max(full, 1):.4f} of the tiles with a "
+        f"sample inside the masks")
+    check(got == want, f"{tag} routes {got} != plane_sweep_routes {want}")
+    for line in ptxas_usage("plane_sweep", f"plane_sweep_diffs_kernelILb{int(occ)}E"):
+        print(f"  {line}")
+
+
 def k1_phase() -> dict:
     import torch
 
@@ -200,8 +250,10 @@ def k1_phase() -> dict:
     cur, lookup, M, t, bins = k1_inputs()
     BF, h, w, C = cur.shape
     D = bins.shape[0]
-    out = plane_sweep_diffs(cur, lookup, M, t, bins)
+    routes = torch.zeros(3, dtype=torch.int32, device="cuda")
+    out = plane_sweep_diffs(cur, lookup, M, t, bins, routes=routes)
     torch.cuda.synchronize()
+    plane_sweep_report("K1", routes, M, t, bins, h, w, C, occ=False)
     plain = plane_sweep_diffs_reference(cur, lookup, M, t, bins)
     err = (out - plain).abs().max().item()
     flips = ((out == 0) != (plain == 0)).sum().item()
@@ -261,8 +313,10 @@ def k6_phase() -> dict:
     apply_occ = (rng.uniform(0, 1, BF) > 0.33).astype(np.float32)
     occ, apply_occ = (torch.from_numpy(a).cuda() for a in (occ, apply_occ))
     args = (cur, lookup, occ, apply_occ, M, t, bins, pool_th)
-    out = plane_sweep_diffs_occ(*args)
+    routes = torch.zeros(3, dtype=torch.int32, device="cuda")
+    out = plane_sweep_diffs_occ(*args, routes=routes)
     torch.cuda.synchronize()
+    plane_sweep_report("K6", routes, M, t, bins, h, w, C, occ=True)
     plain = plane_sweep_diffs_occ_reference(*args)
     err = (out - plain).abs().max().item()
     border_flips = ((out == 0) != (plain == 0)).sum().item()
@@ -1023,6 +1077,13 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
         busy_ms = busy_us / 1e3
         print(f"profiled step {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms: "
               f"device idle share {1 - busy_ms / wall_ms:.3f}")
+        # K1 / K6 in this step (each a few tenths of a ms: below the table)
+        sweep = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "plane_sweep_diffs_kernel" in e.name]
+        print(f"plane-sweep kernels in the profiled step: {len(sweep)} "
+              f"launches, {sum(sweep) / 1e3:.4f} ms of device time "
+              f"({sum(sweep) / 1e3 / busy_ms:.4f} of the busy time)")
         os.makedirs("chiprun_out", exist_ok=True)
         table = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40)

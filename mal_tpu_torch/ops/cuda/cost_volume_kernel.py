@@ -15,6 +15,9 @@ what bounds them and how they are laid out.
 - `plane_sweep_diffs_reference` / `plane_sweep_diffs_occ_reference`: the
   plain PyTorch versions, in the kernel's order of operations.
 - `plane_sweep_cost_volume_kernel`: the full cost volume around K1.
+- `plane_sweep_routes`: how many tiles the kernel takes by each of its
+  routes (empty, staged in shared memory, direct from device memory), from
+  the same projection on any device: the kernel decides this on the card.
 
 `mal_tpu`'s `cv_mxu_precision` ("highest", or "default" in fast mode)
 chooses how many bf16 passes the TPU's matrix unit spends on the Pallas
@@ -37,7 +40,13 @@ from mal_tpu_torch.ops.cost_volume import plane_sweep_terms
 Tensor = torch.Tensor
 
 SOURCE = "plane_sweep"
-_MAX_CHANNELS = 256   # the kernel holds at most 4 float4 groups per lane
+_MAX_CHANNELS = 256   # a warp holds at most 8 float4 groups of a pixel
+# the kernel's tile and shared-memory budget (csrc/plane_sweep.cu: kPlanes,
+# kPixels, kBoxBytes)
+TILE_PLANES = 8
+TILE_PIXELS = 32
+BOX_BYTES = 40 * 1024
+ROUTES = ("empty", "staged", "direct")
 
 
 def _plane_sweep_reference(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
@@ -168,17 +177,82 @@ def _check(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
                          f"(BF, h, w) = {(BF, h, w)}")
 
 
+def plane_sweep_routes(M: Tensor, t: Tensor, depth_bins: Tensor, h: int,
+                       w: int, C: int, occ: bool = False) -> dict[str, int]:
+    """How many of K1's tiles (with `occ`, K6's) the kernel takes by each
+    route, {"empty": n, "staged": n, "direct": n}, for M (BF, 3, 3), t
+    (BF, 3), depth_bins (D,) and (h, w, C) features.
+
+    Mirrors `csrc/plane_sweep.cu`: a tile is TILE_PLANES planes x
+    TILE_PIXELS pixels of one row; its box is the corners' rows and columns
+    over its samples inside the border masks; it is empty without such a
+    sample, staged where the box's channel planes (each padded to 1 mod 8
+    float4 words), and for K6 the box of the occlusion mask, fit in
+    BOX_BYTES, and direct elsewhere. The projection is the plain version's,
+    which the kernel reproduces to the bit, so the counts are the kernel's.
+    """
+    D = depth_bins.shape[0]
+    P, U = TILE_PLANES, TILE_PIXELS
+    Dp, Wp = -(-D // P) * P, -(-w // U) * U
+    dev = M.device
+    u = torch.arange(w, dtype=torch.float32, device=dev).reshape(1, 1, w)
+    v = torch.arange(h, dtype=torch.float32, device=dev).reshape(1, h, 1)
+    d = depth_bins.to(torch.float32).reshape(D, 1, 1)
+    inner = (u >= 2) & (u <= w - 3) & (v >= 2) & (v <= h - 3)
+    inf = float("inf")
+    counts = dict.fromkeys(ROUTES, 0)
+    for m, tt in zip(M.reshape(-1, 9), t.reshape(-1, 3)):  # a frame at a time
+        # the plain version's operations, in place where they may be
+        zh = d * (m[6] * u + m[7] * v + m[8])
+        zh += tt[2]
+        zh += 1e-7
+        x = d * (m[0] * u + m[1] * v + m[2])
+        x += tt[0]
+        x /= zh
+        y = d * (m[3] * u + m[4] * v + m[5])
+        y += tt[1]
+        y /= zh
+        outside = (x < 2.0) | ~inner
+        outside |= x > w - 2
+        outside |= y < 2.0
+        outside |= y > h - 2
+        outside |= torch.isnan(x) | torch.isnan(y)
+
+        def reduce(a: Tensor, fill: float, fn) -> Tensor:
+            """fn over each tile of (D, h, w) corners, fill where a sample
+            is outside the masks or past the edge: (D / P, h, w / U)."""
+            a = torch.nn.functional.pad(a.masked_fill_(outside, fill),
+                                        (0, Wp - w, 0, 0, 0, Dp - D),
+                                        value=fill)
+            return fn(a.reshape(Dp // P, P, h, Wp // U, U), dim=(1, 4))
+
+        x0, y0 = x.floor_(), y.floor_()
+        lo_x, lo_y = reduce(x0, inf, torch.amin), reduce(y0, inf, torch.amin)
+        hi_x, hi_y = reduce(x0, -inf, torch.amax), reduce(y0, -inf, torch.amax)
+        full = torch.isfinite(lo_x)
+        lo_x, hi_x, lo_y, hi_y = (torch.where(full, a, 0.0).long()
+                                  for a in (lo_x, hi_x, lo_y, hi_y))
+        pixels = (hi_x - lo_x + 2) * (hi_y - lo_y + 2)
+        stride = pixels + (9 - pixels % 8) % 8
+        need = stride * (C // 4) * 16 + (pixels * 4 if occ else 0)
+        staged = full & (need <= BOX_BYTES)
+        counts["empty"] += int((~full).sum())
+        counts["staged"] += int(staged.sum())
+        counts["direct"] += int((full & ~staged).sum())
+    return counts
+
+
 def _library() -> ctypes.CDLL:
     from mal_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library(SOURCE)
     fn = lib.plane_sweep_diffs_f32
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         occ = lib.plane_sweep_diffs_occ_f32
         occ.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_float]
-                        + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                         + [ctypes.c_void_p])
         occ.restype = ctypes.c_int
         lib.plane_sweep_error_string.argtypes = [ctypes.c_int]
@@ -186,12 +260,26 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _routes_ptr(routes: Tensor | None, cur: Tensor) -> int | None:
+    """The device pointer of `routes`, an int32 (3,) tensor beside cur to
+    which the kernel adds its tiles by route (ROUTES), or None."""
+    if routes is None:
+        return None
+    if (routes.device != cur.device or routes.dtype != torch.int32
+            or routes.shape != (len(ROUTES),) or not routes.is_contiguous()):
+        raise ValueError(f"routes must be a contiguous int32 "
+                         f"({len(ROUTES)},) tensor on {cur.device}")
+    return routes.data_ptr()
+
+
 def plane_sweep_diffs(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
-                      depth_bins: Tensor) -> Tensor:
+                      depth_bins: Tensor, routes: Tensor | None = None) -> Tensor:
     """Per-frame masked L1 plane-sweep differences (BF, D, h, w).
 
     Arguments as `plane_sweep_diffs_reference`. CUDA tensors go to the
-    kernel; CPU tensors to the plain version.
+    kernel; CPU tensors to the plain version. `routes`: for CUDA tensors, an
+    optional int32 (3,) tensor to which the kernel adds how many tiles it
+    took by each route (ROUTES; `plane_sweep_routes` predicts them).
     """
     if cur.device.type == "cpu":
         D = depth_bins.shape[0]
@@ -200,6 +288,7 @@ def plane_sweep_diffs(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
     if cur.device.type != "cuda":
         raise ValueError(f"unsupported device {cur.device}")
     _check(cur, lookup, M, t, depth_bins)
+    routes_ptr = _routes_ptr(routes, cur)
     BF, h, w, C = cur.shape
     D = depth_bins.shape[0]
     out = torch.empty((BF, D, h, w), dtype=torch.float32, device=cur.device)
@@ -208,7 +297,8 @@ def plane_sweep_diffs(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.plane_sweep_diffs_f32(
             cur.data_ptr(), lookup.data_ptr(), M.data_ptr(), t.data_ptr(),
-            depth_bins.data_ptr(), out.data_ptr(), BF, D, h, w, C, stream)
+            depth_bins.data_ptr(), out.data_ptr(), routes_ptr, BF, D, h, w, C,
+            stream)
     if err:
         msg = lib.plane_sweep_error_string(err).decode()
         raise RuntimeError(f"plane_sweep_diffs launch failed: {msg} ({err})")
@@ -221,11 +311,13 @@ plane_sweep_diffs.launches = 0
 
 def plane_sweep_diffs_occ(cur: Tensor, lookup: Tensor, occ: Tensor,
                           apply_occ: Tensor, M: Tensor, t: Tensor,
-                          depth_bins: Tensor, pool_th: float) -> Tensor:
+                          depth_bins: Tensor, pool_th: float,
+                          routes: Tensor | None = None) -> Tensor:
     """K6: per-frame masked L1 plane-sweep differences (BF, D, h, w) with
     the `cv_set_1` occlusion substitution. Arguments as
-    `plane_sweep_diffs_occ_reference`. CUDA tensors go to the kernel; CPU
-    tensors to the plain version."""
+    `plane_sweep_diffs_occ_reference`, and `routes` as in
+    `plane_sweep_diffs`. CUDA tensors go to the kernel; CPU tensors to the
+    plain version."""
     if cur.device.type == "cpu":
         D = depth_bins.shape[0]
         return plane_sweep_diffs_occ_reference(cur, lookup, occ, apply_occ, M,
@@ -234,6 +326,7 @@ def plane_sweep_diffs_occ(cur: Tensor, lookup: Tensor, occ: Tensor,
     if cur.device.type != "cuda":
         raise ValueError(f"unsupported device {cur.device}")
     _check(cur, lookup, M, t, depth_bins, occ=occ, apply_occ=apply_occ)
+    routes_ptr = _routes_ptr(routes, cur)
     BF, h, w, C = cur.shape
     D = depth_bins.shape[0]
     out = torch.empty((BF, D, h, w), dtype=torch.float32, device=cur.device)
@@ -243,7 +336,8 @@ def plane_sweep_diffs_occ(cur: Tensor, lookup: Tensor, occ: Tensor,
         err = lib.plane_sweep_diffs_occ_f32(
             cur.data_ptr(), lookup.data_ptr(), occ.data_ptr(),
             apply_occ.data_ptr(), float(pool_th), M.data_ptr(), t.data_ptr(),
-            depth_bins.data_ptr(), out.data_ptr(), BF, D, h, w, C, stream)
+            depth_bins.data_ptr(), out.data_ptr(), routes_ptr, BF, D, h, w,
+            C, stream)
     if err:
         msg = lib.plane_sweep_error_string(err).decode()
         raise RuntimeError(f"plane_sweep_diffs_occ launch failed: {msg} ({err})")

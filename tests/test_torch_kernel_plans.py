@@ -1,11 +1,23 @@
 """What the CUDA kernels' wrappers decide from shapes alone, and what the
 kernels assume of their inputs, checked on the CPU."""
 
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
+from mal_tpu_torch.ops.cuda import cost_volume_kernel as k1
 from mal_tpu_torch.ops.cuda import deform_sample as k5
 from mal_tpu_torch.segment.swin import shift_mask
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 # (tokens, channels, points, channels a staged block takes): the pixel
@@ -27,3 +39,16 @@ def test_shift_mask_holds_one_nonzero_value(Hp, Wp):
     non-zero value, which is exact only for a mask of 0 and one value."""
     mask = shift_mask(Hp, Wp, 12, 6)
     assert set(torch.unique(mask).tolist()) == {-100.0, 0.0}
+
+
+# chip_smoke.py's K1 phase (BF=12, D=96, 48x160x64) and K6 phase (BF=14,
+# 48x128x64): tiles by route (ROUTES: empty, staged, direct). The kernel
+# counts its own on the card and chip_smoke.py holds them to this mirror.
+@pytest.mark.parametrize("inputs,occ,routes", [
+    ({}, False, {"empty": 6040, "staged": 26295, "direct": 2225}),
+    ({"BF": 14, "w": 128, "seed": 1}, True,
+     {"empty": 5430, "staged": 24817, "direct": 2009})])
+def test_k1_k6_routes_at_the_main_path_shapes(inputs, occ, routes):
+    cur, _, M, t, bins = _chip_smoke().k1_inputs(device="cpu", **inputs)
+    _, h, w, C = cur.shape
+    assert k1.plane_sweep_routes(M, t, bins, h, w, C, occ=occ) == routes

@@ -28,21 +28,44 @@ def cuda():
     return torch.device("cuda")
 
 
-def _k1_inputs(BF, h, w, C, D, seed=0):
+def _poses(kind, BF, rng):
+    """(BF, 1, 4, 4) poses. "random": translations up to 0.3 and the last
+    pose missing (all zeros); the others drive K1 / K6 down each of their
+    routes: "smeared": translations of 0.5, whose near planes smear a
+    tile's corners across the image; "zero": every pose missing (x = 0, so
+    every sample is masked); "behind": half turns about the vertical axis,
+    which put every plane farther than the translation behind the camera
+    (zh < 0) and project it back into the image."""
+    poses = np.broadcast_to(np.eye(4, dtype=np.float32), (BF, 1, 4, 4)).copy()
+    if kind == "random":
+        poses[:, 0, :3, 3] = rng.uniform(-0.3, 0.3, (BF, 3))
+        poses[-1] = 0.0
+    elif kind == "smeared":
+        poses[:, 0, :3, 3] = rng.uniform(-0.5, 0.5, (BF, 3))
+        poses[:, 0, 0, 3] = np.where(np.arange(BF) % 2, 0.5, -0.5)
+    elif kind == "zero":
+        poses[:] = 0.0
+    elif kind == "behind":
+        for b in range(BF):
+            a = np.pi + rng.uniform(-0.1, 0.1)
+            poses[b, 0, :3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                                   [-np.sin(a), 0, np.cos(a)]]
+        poses[:, 0, :3, 3] = rng.uniform(-0.2, 0.2, (BF, 3))
+    return poses
+
+
+def _k1_inputs(BF, h, w, C, D, seed=0, kind="random", min_depth=0.1):
     rng = np.random.RandomState(seed)
     cur = torch.from_numpy(rng.uniform(0, 1, (BF, h, w, C)).astype(np.float32))
     lookup = torch.from_numpy(rng.uniform(0, 1, (BF, h, w, C)).astype(np.float32))
     K = np.eye(4, dtype=np.float32)
     K[0, 0], K[1, 1], K[0, 2], K[1, 2] = 0.58 * w, 1.92 * h, 0.5 * w, 0.5 * h
-    poses = np.broadcast_to(np.eye(4, dtype=np.float32), (BF, 1, 4, 4)).copy()
-    poses[:, 0, :3, 3] = rng.uniform(-0.3, 0.3, (BF, 3))
-    poses[-1] = 0.0
-    M, t = plane_sweep_terms(torch.from_numpy(poses),
+    M, t = plane_sweep_terms(torch.from_numpy(_poses(kind, BF, rng)),
                              torch.from_numpy(np.broadcast_to(K, (BF, 4, 4)).copy()),
                              torch.from_numpy(np.broadcast_to(np.linalg.inv(K),
                                                               (BF, 4, 4)).copy()))
     return (cur, lookup, M.reshape(BF, 3, 3).contiguous(),
-            t.reshape(BF, 3).contiguous(), compute_depth_bins(0.1, 10.0, D))
+            t.reshape(BF, 3).contiguous(), compute_depth_bins(min_depth, 10.0, D))
 
 
 # (BF, h, w, C, D): a ragged pixel count, few channels, the widest the
@@ -114,6 +137,96 @@ def test_k6_matches_plain_version(cuda, shape):
     sampled = (open_ != 0).flatten(1).any(1)
     assert changed.tolist() == (apply_occ.bool() & sampled).tolist()
     assert changed.any().item()
+
+
+def _behind_inside(M, t, bins, h, w):
+    """Samples inside the border masks whose plane lies behind the camera."""
+    u = torch.arange(w, dtype=torch.float32, device=M.device)
+    v = torch.arange(h, dtype=torch.float32, device=M.device)[:, None]
+    m = M.reshape(-1, 9, 1, 1, 1)
+    d = bins.reshape(1, -1, 1, 1)
+    zh = d * (m[:, 6] * u + m[:, 7] * v + m[:, 8]) + t[:, 2, None, None, None]
+    x = (d * (m[:, 0] * u + m[:, 1] * v + m[:, 2]) + t[:, 0, None, None, None]) / (zh + 1e-7)
+    y = (d * (m[:, 3] * u + m[:, 4] * v + m[:, 5]) + t[:, 1, None, None, None]) / (zh + 1e-7)
+    inside = ((x >= 2) & (x <= w - 2) & (y >= 2) & (y <= h - 2)
+              & (u >= 2) & (u <= w - 3) & (v >= 2) & (v <= h - 3))
+    return (inside & (zh < 0)).sum().item()
+
+
+# (kind, BF, h, w, C, D, min_depth, the routes the case must reach): near
+# planes that smear tiles past the shared-memory budget, a row of 9 and a
+# width that is no multiple of the kernel's 32-pixel tiles, 4 channels, 256
+# (whose boxes fit only on a narrow map), every pose missing, and planes
+# behind the camera
+ROUTE_CASES = {
+    "smeared": ("smeared", 4, 48, 160, 64, 32, 0.02, ("staged", "direct")),
+    "ragged": ("random", 3, 9, 45, 64, 16, 0.1, ("staged",)),
+    "c4": ("random", 2, 24, 70, 4, 16, 0.1, ("staged",)),
+    "c256": ("random", 2, 16, 64, 256, 16, 0.1, ("direct",)),
+    "c256_narrow": ("random", 2, 16, 12, 256, 16, 0.1, ("staged",)),
+    "zero_pose": ("zero", 2, 16, 40, 16, 8, 0.1, ("empty",)),
+    "behind": ("behind", 2, 24, 80, 32, 16, 0.1, ("staged",)),
+}
+
+
+def _check_routes(name, routes, M, t, bins, h, w, C, occ):
+    """The kernel's tiles by route equal plane_sweep_routes' count, and
+    the case reaches the routes it is there for."""
+    want = tk.plane_sweep_routes(M, t, bins, h, w, C, occ=occ)
+    got = dict(zip(tk.ROUTES, routes.tolist()))
+    assert got == want
+    assert all(got[r] > 0 for r in ROUTE_CASES[name][-1])
+    if name == "zero_pose":
+        assert got["staged"] == got["direct"] == 0
+    if name == "behind":
+        assert _behind_inside(M, t, bins, h, w) > 0
+
+
+@pytest.mark.parametrize("name", list(ROUTE_CASES))
+def test_k1_routes_match_plain_version(cuda, name):
+    kind, BF, h, w, C, D, min_depth, _ = ROUTE_CASES[name]
+    cur, lookup, M, t, bins = [a.to(cuda) for a in _k1_inputs(
+        BF, h, w, C, D, kind=kind, min_depth=min_depth)]
+    routes = torch.zeros(len(tk.ROUTES), dtype=torch.int32, device=cuda)
+    out = tk.plane_sweep_diffs(cur, lookup, M, t, bins, routes=routes)
+    plain = tk.plane_sweep_diffs_reference(cur, lookup, M, t, bins, chunk=8)
+    torch.cuda.synchronize()
+    assert ((out == 0) != (plain == 0)).sum().item() == 0
+    torch.testing.assert_close(out, plain, rtol=0, atol=3e-5)
+    _check_routes(name, routes, M, t, bins, h, w, C, occ=False)
+
+
+@pytest.mark.parametrize("name", list(ROUTE_CASES))
+def test_k6_routes_match_plain_version(cuda, name):
+    kind, BF, h, w, C, D, min_depth, _ = ROUTE_CASES[name]
+    cur, lookup, M, t, bins = [a.to(cuda) for a in _k1_inputs(
+        BF, h, w, C, D, kind=kind, min_depth=min_depth)]
+    occ, apply_occ = [a.to(cuda) for a in _k6_extra(BF, h, w)]
+    pool_th = 0.15
+    args = (cur, lookup, occ, apply_occ, M, t, bins, pool_th)
+    routes = torch.zeros(len(tk.ROUTES), dtype=torch.int32, device=cuda)
+    out = tk.plane_sweep_diffs_occ(*args, routes=routes)
+    plain = tk.plane_sweep_diffs_occ_reference(*args, chunk=8)
+    torch.cuda.synchronize()
+    assert ((out == 0) != (plain == 0)).sum().item() == 0
+    torch.testing.assert_close(out, plain, rtol=0, atol=3e-5)
+    # occlusion decisions: where the occluded value (every sample occluded)
+    # and the open one (none) are well apart, which of them each side gave
+    occluded = tk.plane_sweep_diffs_occ_reference(
+        cur, lookup, torch.ones_like(occ), torch.ones_like(apply_occ), M, t,
+        bins, pool_th, chunk=8)
+    open_ = tk.plane_sweep_diffs_occ_reference(
+        cur, lookup, occ, torch.zeros_like(apply_occ), M, t, bins, pool_th,
+        chunk=8)
+    apart = (occluded - open_).abs() > 3e-3
+
+    def chose_occluded(x):
+        return (x - occluded).abs() < (x - open_).abs()
+
+    assert (apart & (chose_occluded(out) != chose_occluded(plain))).sum().item() == 0
+    if name != "zero_pose":
+        assert (apart & chose_occluded(plain)).any().item()
+    _check_routes(name, routes, M, t, bins, h, w, C, occ=True)
 
 
 def test_k6_wrapper_rejects_what_the_kernel_does_not_take(cuda):
