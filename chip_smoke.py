@@ -49,11 +49,23 @@ Phases, each of which must pass or the script exits non-zero:
    cv_min=True, cv_set_1=True, cv_pool_th=0.15)` on a seeded batch with
    `synthetic_doj_masks`, N steps and one eval forward, in fp32 and then
    with `**TRAIN_FAST_SETTINGS`: K6 = steps + evals, K1-K5 = 0.
-Phases 5 to 8 each set every kernel's launch count to 0 just before they
-run and read the counts just after; each kernel must have launched exactly
-as often as its path calls it (phase 7: K2 = K3 = 72 per step, K4 = 0), and
-at least once on some path. K5b is exempt: nothing calls it, in `mal_tpu`
-either, and its phase is its launch. The script then prints the `kernels`
+9. the CLI (`mal_tpu_torch.cli.main` only), in a fake KITTI tree of seeded
+   1242x375 JPEGs under `build/chip_smoke_cli` with its own `splits/`:
+   `train --preset kitti` at the recipe in fast mode (3 steps, one
+   validation, one checkpoint; ms per step, the wait on the loader, which
+   loader ran and, if `libmalio.so` did not build, why; frames/s through
+   the CLI against the same state and step on a synthetic batch; with
+   `--profile` the device idle share of one trainer step), `eval` of the
+   checkpoint and, after `export-pth`, of its `.pth` directory (abs_rel
+   within 1e-6), `train --seg_pkl` with the hint from a `.pkl` written from
+   a seeded Swin-L Mask2Former (2 steps), DynamicDepth `train` (2 steps,
+   one validation) and its `eval --doj_root` on mask files.
+Phases 5 to 9 set every kernel's launch count to 0 just before each path
+(in phase 9, each command) and read the counts just after; each kernel
+must have launched exactly as often as its path calls it (phase 7: K2 =
+K3 = 72 per step, K4 = 0), and at least once on some path. K5b is
+exempt: nothing calls it, in `mal_tpu` either, and its phase is its
+launch. The script then prints the `kernels`
 JSON line (launches per path and in all), the card's line, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or without the
 `mal_tpu_torch` package beside it, it exits non-zero and prints no result.
@@ -988,6 +1000,36 @@ def small_temporal_reference_phase(fast: bool = False) -> None:
           "GPU temporal loss != CPU temporal loss")
 
 
+def idle_share(one_step):
+    """Run `one_step()` once under torch.profiler and print the device idle
+    share: 1 - busy time / host-clock time, the busy time being the union of
+    the device events' intervals (cuDNN may overlap kernels on its own
+    streams; the profiler's buffer flushes are not work of the step).
+    Returns (idle share, busy ms, the profile)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name != "Buffer Flush")
+    busy_us, reach = 0.0, float("-inf")
+    for a, b in spans:
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    busy_ms = busy_us / 1e3
+    idle = 1 - busy_ms / wall_ms
+    print(f"profiled step {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms: "
+          f"device idle share {idle:.3f}")
+    return idle, busy_ms, prof
+
+
 def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
     """`create_train_state`, `steps` training steps and one `eval_forward`
     at `cfg` on a seeded synthetic batch, with every kernel's launch count
@@ -1055,28 +1097,11 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
           f"launches {launches}")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as tprofile
+        def one_step():
+            nonlocal state
+            state, _ = step(state, batch, 0.0, gen)
 
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, metrics = step(state, batch, 0.0, gen)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        # device busy time: the union of the device events' intervals
-        # (cuDNN may overlap kernels on its own streams); the profiler's
-        # buffer flushes are not work of the step
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.name != "Buffer Flush")
-        busy_us, reach = 0.0, float("-inf")
-        for a, b in spans:
-            busy_us += max(0.0, b - max(a, reach))
-            reach = max(reach, b)
-        busy_ms = busy_us / 1e3
-        print(f"profiled step {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms: "
-              f"device idle share {1 - busy_ms / wall_ms:.3f}")
+        _, busy_ms, prof = idle_share(one_step)
         # K1 / K6 in this step (each a few tenths of a ms: below the table)
         sweep = [e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1258,6 +1283,233 @@ def dynamic_path_phase(steps: int, profile: bool, fast: bool,
     return launches
 
 
+# the CLI phase's fake KITTI tree: 36 training lines (3 steps at batch 12),
+# 24 test lines (2 validation batches), and two shorter training splits
+# for the 2-step runs (24 lines at batch 12, 28 at DynamicDepth's 14)
+CLI_TRAIN_LINES, CLI_TEST_LINES = 36, 24
+CLI_SPLITS = {"smoke_24": 24, "smoke_28": 28}
+CLI_ABS_REL_ATOL = 1e-6   # the checkpoint and its .pth export, evaluated
+DYN_CLI = ["method='dynamicdepth'", "height=192", "width=512",
+           "batch_size=14", "cv_min=True", "cv_set_1=True",
+           "cv_pool_th=0.15"]
+
+
+def _write_cli_tree() -> dict:
+    """The fake KITTI tree in the working directory, the short splits, and
+    dynamic-object masks for the test lines as `.npy` files."""
+    import numpy as np
+
+    from mal_tpu_torch.data.synthetic import KITTI_DRIVE, write_fake_kitti
+
+    paths = write_fake_kitti(".", CLI_TRAIN_LINES, CLI_TEST_LINES, seed=0)
+    with open(paths["eigen_zhou"]) as f:
+        lines = f.readlines()
+    for name, n in CLI_SPLITS.items():
+        os.makedirs(os.path.join("splits", name))
+        with open(os.path.join("splits", name, "train_files.txt"), "w") as f:
+            f.writelines(lines[:n])
+    os.makedirs("doj")
+    mask = np.zeros((375, 1242), np.float32)
+    mask[200:330, 300:700] = 1.0
+    key = KITTI_DRIVE.replace("/", "_")
+    for i in range(1, CLI_TEST_LINES + 1):
+        for suffix in ("", "-1", "+1"):
+            np.save(os.path.join("doj", f"{key}_{i}_l{suffix}.npy"), mask)
+    return paths
+
+
+def _finite(d: dict) -> bool:
+    return all(isinstance(v, float) and v == v and abs(v) != float("inf")
+               for v in d.values())
+
+
+def _steps_ms(trainer) -> str:
+    ms = [t * 1e3 for t in trainer.step_s]
+    wait = [t * 1e3 for t in trainer.loader_wait_s]
+    return (f"step ms (host clock, loader wait to the step's fetched "
+            f"metrics) {', '.join(f'{t:.2f}' for t in ms)}; of which "
+            f"waiting on the loader {', '.join(f'{t:.2f}' for t in wait)}")
+
+
+def cli_phase(profile: bool, every: list) -> dict[str, dict[str, int]]:
+    """The port driven only through `mal_tpu_torch.cli.main`, in a fake
+    KITTI tree of seeded 1242x375 JPEGs under `build/chip_smoke_cli` (the
+    working directory of the phase, with its own `splits/`): ManyDepth
+    `train` at the recipe (`--preset kitti`, fast mode, 3 steps, one
+    validation, one checkpoint), `eval` of the checkpoint, `export-pth`,
+    `eval` of the `.pth` directory (abs_rel within 1e-6), `train --seg_pkl`
+    with the temporal hint (2 steps), DynamicDepth `train` (2 steps, one
+    validation) and its `eval --doj_root`. Each command runs with every
+    kernel's count set to 0 just before and read just after."""
+    import shutil
+
+    import torch
+
+    from mal_tpu_torch.cli import main as cli
+    from mal_tpu_torch.convert.mask2former import export_mask2former_pkl
+    from mal_tpu_torch.data import native
+    from mal_tpu_torch.data.synthetic import synthetic_batch
+    from mal_tpu_torch.device import batch_to_device
+    from mal_tpu_torch.segment.mask2former import Mask2Former
+
+    t_phase = time.perf_counter()
+    root = os.path.abspath(os.path.join("build", "chip_smoke_cli"))
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    cwd = os.getcwd()
+    by_path: dict[str, dict[str, int]] = {}
+
+    def counted(name: str, argv: list[str], want: dict[str, int]):
+        for fn in every:
+            fn.launches = 0
+        out = cli(argv)
+        by_path[name] = {fn.__name__: fn.launches for fn in every}
+        print(f"{name}: launches {by_path[name]}")
+        for kernel in by_path[name]:
+            n = want.get(kernel, 0)
+            check(by_path[name][kernel] == n, f"{name}: {kernel} launched "
+                  f"{by_path[name][kernel]} times, not {n}")
+        return out
+
+    try:
+        os.chdir(root)
+        t0 = time.perf_counter()
+        paths = _write_cli_tree()
+        print(f"CLI phase: fake KITTI tree ({CLI_TRAIN_LINES} training and "
+              f"{CLI_TEST_LINES} test lines of 1242x375 JPEGs, GT depths, "
+              f"doj masks) in {time.perf_counter() - t0:.2f} s")
+        common = ["--data_path", paths["data_path"], "--gt", paths["gt"]]
+
+        # ManyDepth at the recipe's full width, fast mode by the CLI's default
+        val_batches = -(-CLI_TEST_LINES // 12)
+        trainer = counted(
+            "cli_train", ["train", "--preset", "kitti", *common, "--set",
+                          "num_epochs=1", "validate_every=2",
+                          "validate_from=0", "save_until=0", "log_every=1",
+                          "ckpt_dir='ck'"],
+            {"plane_sweep_diffs": 3 + val_batches})
+        cfg = trainer.cfg
+        check((cfg.height, cfg.width, cfg.batch_size, cfg.num_depth_bins,
+               cfg.num_layers, cfg.compute_dtype)
+              == (192, 640, 12, 96, 18, "bfloat16"),
+              f"train ran another configuration: {cfg}")
+        check(trainer.step == 3, f"train took {trainer.step} steps, not 3")
+        print(f"loader: {type(trainer.train_loader).__name__}; native "
+              f"library built: {native.available()}"
+              f"{'' if native.available() else ': ' + str(native.build_error())}")
+        print(f"cli train: {_steps_ms(trainer)}")
+        val = {k: v for _, m in trainer.logger.history for k, v in m.items()
+               if k.startswith("val/")}
+        check(len(val) >= 7 and _finite(val), f"validation metrics {val}")
+        print(f"validation at step 2: {json.dumps(val)}")
+
+        # the same state and step function on a synthetic batch already on
+        # the card: the step without the loader
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = synthetic_batch(cfg, gen, "cuda")
+        syn_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, metrics = trainer.step_fn(trainer.state, batch, 0.0, gen)
+            check(_finite({k: float(v) for k, v in metrics.items()}),
+                  "non-finite synthetic-batch metrics")
+            syn_ms.append((time.perf_counter() - t0) * 1e3)
+        cli_ms = statistics.median(t * 1e3 for t in trainer.step_s[1:])
+        syn = statistics.median(syn_ms[1:])
+        print(f"synthetic-batch steps, same state and step: "
+              f"{', '.join(f'{t:.2f}' for t in syn_ms)} ms; frames/s through "
+              f"the CLI {cfg.batch_size * 1e3 / cli_ms:.2f} (median step "
+              f"{cli_ms:.2f} ms), on the synthetic batch "
+              f"{cfg.batch_size * 1e3 / syn:.2f} ({syn:.2f} ms)")
+        if profile:
+            it = trainer.train_loader.epoch(1)
+
+            def trainer_step():
+                host = next(it)
+                b = batch_to_device(host, trainer.device)
+                _, m = trainer.step_fn(trainer.state, b, 1.0,
+                                       trainer.generator)
+                float(m["loss"])
+            trainer_step()        # the prefetch running, as in a loop
+            print("a trainer step (loader, copy to the card, step, "
+                  "metrics), profiled:")
+            prof = idle_share(trainer_step)[2]
+            print(prof.key_averages().table(sort_by="cuda_time_total",
+                                            row_limit=20)[:4000])
+            it.close()
+
+        # the checkpoint, its reference-layout export, both evaluated in
+        # exact fp32
+        ckpt = os.path.join("ck", f"{cfg.model_name}_s2")
+        ours = counted("cli_eval", ["eval", *common, "--ckpt", ckpt, "--set",
+                                    "compute_dtype='float32'",
+                                    "cv_mxu_precision='highest'"],
+                       {"plane_sweep_diffs": val_batches})
+        cli(["export-pth", "--ckpt", ckpt, "--out", "pth"])
+        ref = counted("cli_eval_pth", ["eval", *common, "--ckpt", "pth"],
+                      {"plane_sweep_diffs": val_batches})
+        check(_finite(ours) and _finite(ref), "non-finite eval metrics")
+        gap = abs(ours["abs_rel"] - ref["abs_rel"])
+        print(f"eval abs_rel: checkpoint {ours['abs_rel']!r}, .pth export "
+              f"{ref['abs_rel']!r} (difference {gap:.3e}, at most "
+              f"{CLI_ABS_REL_ATOL})")
+        check(gap <= CLI_ABS_REL_ATOL, "checkpoint and .pth export disagree")
+
+        # the temporal hint with a segmenter from a .pkl
+        t0 = time.perf_counter()
+        seg = Mask2Former(generator=torch.Generator().manual_seed(1))
+        export_mask2former_pkl(seg, "seg.pkl")
+        del seg
+        print(f"Swin-L Mask2Former .pkl written in "
+              f"{time.perf_counter() - t0:.2f} s "
+              f"({os.path.getsize('seg.pkl') / 2 ** 20:.0f} MiB)")
+        steps = CLI_SPLITS["smoke_24"] // 12
+        trainer = counted(
+            "cli_temporal", ["train", "--data_path", paths["data_path"],
+                             "--no_eval", "--seg_pkl", "seg.pkl", "--set",
+                             "split='smoke_24'", "temporal=True",
+                             "ins_threshold=0.0", "num_epochs=1",
+                             "log_every=1", "ckpt_dir='ckt'"],
+            {"plane_sweep_diffs": steps, "swin_attn_fused": 72 * steps,
+             "swin_mlp_fused": 72 * steps, "ms_deform_attn_core": 18 * steps})
+        check(trainer.step == steps, f"temporal train took {trainer.step} "
+              f"steps, not {steps}")
+        check(all(m["syn_items"] > 0 for _, m in trainer.logger.history),
+              "a temporal step had no matched pair")
+        print(f"cli temporal train: {_steps_ms(trainer)}")
+        del trainer
+
+        # DynamicDepth at its benchmark configuration, then eval with masks
+        steps = CLI_SPLITS["smoke_28"] // 14
+        trainer = counted(
+            "cli_dynamic", ["train", *common, "--set", "split='smoke_28'",
+                            *DYN_CLI, "num_epochs=1", "validate_every=1",
+                            "validate_from=0", "save_until=0",
+                            "log_every=1", "ckpt_dir='ckd'"],
+            {"plane_sweep_diffs_occ": steps + CLI_TEST_LINES})
+        check(trainer.step == steps, f"dynamic train took {trainer.step} "
+              f"steps, not {steps}")
+        print(f"cli dynamic train: {_steps_ms(trainer)}")
+        del trainer
+        dyn = counted("cli_dynamic_eval",
+                      ["eval", *common, "--ckpt",
+                       os.path.join("ckd", f"{cfg.model_name}_s1"),
+                       "--doj_root", "doj"],
+                      {"plane_sweep_diffs_occ": CLI_TEST_LINES})
+        check(_finite(dyn) and dyn["doj_batches"] > 0,
+              f"dynamic eval metrics {dyn}")
+        print(f"dynamic eval: abs_rel {dyn['abs_rel']!r}, doj/abs_rel "
+              f"{dyn['doj/abs_rel']!r}, mono_doj/abs_rel "
+              f"{dyn['mono_doj/abs_rel']!r}, {dyn['doj_batches']:.0f} images "
+              f"with doj pixels")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"CLI phase wall time {time.perf_counter() - t_phase:.2f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3,
@@ -1322,6 +1574,7 @@ def main(argv=None) -> int:
                                              every),
                "dynamic_fast": dynamic_path_phase(args.steps, args.profile,
                                                   True, every)}
+    by_path.update(cli_phase(args.profile, every))
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
                                  for path, counts in by_path.items()}

@@ -1,0 +1,442 @@
+"""Command-line entry points of the port (counterpart of `mal_tpu.cli`).
+
+    python -m mal_tpu_torch.cli train --preset kitti --data_path ...
+    python -m mal_tpu_torch.cli eval --ckpt ... --data_path ... --gt gt_depths.npz
+    python -m mal_tpu_torch.cli export-pth --ckpt ... --out ...
+
+The flags are `mal_tpu.cli`'s, plus `--device` (default `cuda`, which raises
+when no card is present; `--device cpu` runs the plain PyTorch path). Any
+Config field can be overridden with `--set key=value`. Split files resolve
+against the working directory (`splits/<split>/train_files.txt`, ...).
+`main` returns what the command made: the `Trainer` of `train`, the metrics
+of `eval`, the written paths of `export-pth`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import json
+import os
+import sys
+
+import numpy as np
+
+from mal_tpu_torch.config import PRESETS, TRAIN_FAST_SETTINGS, Config
+
+
+def _apply_overrides(cfg: Config, pairs: list[str]) -> Config:
+    updates = {}
+    for pair in pairs:
+        key, value = pair.split("=", 1)
+        try:
+            updates[key] = ast.literal_eval(value)
+        except (ValueError, SyntaxError):
+            updates[key] = value
+    return cfg.replace(**updates)
+
+
+def _img_ext(cfg: Config) -> str:
+    return ".png" if cfg.png else ".jpg"
+
+
+def build_train_loader(cfg: Config):
+    """The training loader: the threaded native decode with background
+    prefetch (`mal_tpu/cli.py:34-64`) when `cfg.native_loader` is on and
+    `libmalio.so` builds, else the PIL loader. Prints which one runs, and
+    why the native one does not."""
+    from mal_tpu_torch.data.cityscapes import CityscapesPreprocessedDataset
+    from mal_tpu_torch.data.kitti import KITTIRAWDataset
+    from mal_tpu_torch.data.mono_dataset import DataLoader
+    from mal_tpu_torch.utils.misc import readlines
+
+    datasets = {"kitti": KITTIRAWDataset,
+                "cityscapes_preprocessed": CityscapesPreprocessedDataset}
+    train_files = readlines(os.path.join("splits", cfg.split,
+                                         "train_files.txt"))
+    ds = datasets[cfg.dataset](cfg.data_path, train_files, cfg.height,
+                               cfg.width, cfg.frames_to_load, is_train=True,
+                               img_ext=_img_ext(cfg),
+                               seg_cache_root=cfg.seg_cache_root)
+    if cfg.native_loader:
+        from mal_tpu_torch.data import native
+        from mal_tpu_torch.data.fast_loader import NativePrefetchLoader
+
+        if not native.available():
+            print(f"loader: PIL (the native library is unavailable: "
+                  f"{native.build_error()})", flush=True)
+        elif not hasattr(ds, "get_image_path"):
+            print(f"loader: PIL ({type(ds).__name__} has no image paths for "
+                  f"the native loader)", flush=True)
+        else:
+            print("loader: native (libmalio, threaded decode, prefetch 2)",
+                  flush=True)
+            return NativePrefetchLoader(ds, cfg.batch_size, shuffle=True,
+                                        drop_last=True,
+                                        num_threads=max(cfg.num_workers, 1))
+    else:
+        print("loader: PIL (native_loader=False)", flush=True)
+    return DataLoader(ds, cfg.batch_size, shuffle=True, drop_last=True)
+
+
+def build_eval_loader(cfg: Config, data_path: str, frames=(0, -1),
+                      doj_root: str | None = None,
+                      batch_size: int | None = None):
+    from mal_tpu_torch.data.cityscapes import CityscapesEvalDataset
+    from mal_tpu_torch.data.kitti import KITTIRAWDataset
+    from mal_tpu_torch.data.mono_dataset import DataLoader
+    from mal_tpu_torch.utils.misc import readlines
+
+    files = readlines(os.path.join("splits", cfg.eval_split, "test_files.txt"))
+    if cfg.eval_split == "cityscapes":
+        ds = CityscapesEvalDataset(data_path, files, cfg.height, cfg.width,
+                                   list(frames), is_train=False)
+    else:
+        ds = KITTIRAWDataset(data_path, files, cfg.height, cfg.width,
+                             list(frames), is_train=False,
+                             img_ext=_img_ext(cfg))
+    if doj_root:
+        from mal_tpu_torch.data.doj import attach_doj_masks
+        ds = attach_doj_masks(ds, doj_root)
+    return DataLoader(ds, batch_size or cfg.batch_size, shuffle=False,
+                      drop_last=False)
+
+
+def cmd_train(args):
+    cfg = PRESETS[args.preset].replace(data_path=args.data_path)
+    # fast-training defaults (overridable with --set compute_dtype=...)
+    cfg = cfg.replace(**TRAIN_FAST_SETTINGS)
+    cfg = _apply_overrides(cfg, args.set or [])
+    if args.coordinator or args.num_hosts != 1 or args.host_id != 0:
+        raise NotImplementedError(
+            "--coordinator, --num_hosts and --host_id (multi-host training): "
+            "not yet ported (ROADMAP M6)")
+
+    from mal_tpu_torch.eval.evaluate import load_gt_depths
+    from mal_tpu_torch.train.trainer import Trainer
+
+    seg_state = None
+    if args.seg_pkl:
+        # the frozen Mask2Former of the temporal hint (the reference's
+        # --ins_weight_path COCO checkpoint, `manydepth/options.py:288-295`)
+        from mal_tpu_torch.convert.mask2former import load_pkl
+        seg_state = load_pkl(args.seg_pkl)
+
+    # the validation loader from the eval split (`manydepth/trainer.py:
+    # 283,299-316`); checkpoints are written only at validation
+    val_batches = gt_depths = None
+    if not args.no_eval:
+        if os.path.isfile(os.path.join("splits", cfg.eval_split,
+                                       "test_files.txt")):
+            dynamic = cfg.method == "dynamicdepth"
+            val_batches = build_eval_loader(
+                cfg, args.eval_data_path or args.data_path,
+                frames=(0, -1, 1) if dynamic else (0, -1),
+                batch_size=1 if dynamic else cfg.batch_size)
+            if args.gt:
+                gt_depths = load_gt_depths(args.gt)
+
+    trainer = Trainer(cfg, build_train_loader(cfg), val_batches=val_batches,
+                      gt_depths=gt_depths, seg_state=seg_state,
+                      device=args.device,
+                      init_weights=not args.resume)   # resume overwrites
+    if args.imagenet_ckpt:
+        # applied first: the checkpoint loads below overwrite it, as in the
+        # reference's construct-then-load order
+        trainer.load_imagenet(args.imagenet_ckpt)
+    if args.load_pretrained:
+        trainer.load_pretrained(
+            args.load_pretrained,
+            models_to_load=(tuple(args.models_to_load)
+                            if args.models_to_load else None))
+    if args.mono_ckpt:
+        # --mono_weights_folder: teacher and pose nets only
+        trainer.load_pretrained(
+            args.mono_ckpt, bins=False,
+            models_to_load=("mono_encoder", "mono_depth", "pose_encoder",
+                            "pose"))
+    start_epoch = 0
+    if args.resume:
+        resumed_step = trainer.resume(args.resume)
+        # continue from the interrupted epoch, so that epoch-keyed
+        # schedules line up
+        start_epoch = resumed_step // len(trainer.train_loader)
+    trainer.train(start_epoch=start_epoch)
+    return trainer
+
+
+def load_train_state(ckpt: str, overrides: list[str], device):
+    """The port's resumable checkpoint for inference: `ckpt` is a
+    `step_NNNNNNNN` directory or its parent (the latest step is taken);
+    its `config.json` gives the model, `--set` overrides still apply.
+    Returns (cfg, state)."""
+    from mal_tpu_torch.train.state import create_train_state
+    from mal_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                load_checkpoint, load_config)
+
+    if os.path.basename(ckpt.rstrip("/")).startswith("step_"):
+        step_path, cfg_dir = ckpt, os.path.dirname(ckpt.rstrip("/"))
+    else:
+        step_path, cfg_dir = latest_checkpoint(ckpt), ckpt
+        if step_path is None:
+            raise SystemExit(f"no step_* checkpoint under {ckpt}")
+    cfg = _apply_overrides(load_config(cfg_dir), overrides)
+    state = load_checkpoint(step_path, create_train_state(
+        cfg, device, init_weights=False))
+    return cfg, state
+
+
+def _is_pth(path: str) -> bool:
+    return path.endswith(".pth") or (
+        os.path.isdir(path) and any(f.endswith(".pth") for f in os.listdir(path)))
+
+
+def cmd_export_pth(args):
+    """The port's checkpoint as the reference's per-net `.pth` files
+    (`repdepth.py:76-99`, `dynamicdepth/trainer.py:1380-1407`)."""
+    from mal_tpu_torch.utils.checkpoint import export_checkpoint_dir
+
+    cfg, state = load_train_state(args.ckpt, args.set or [], args.device)
+    paths = export_checkpoint_dir(
+        state.model, args.out, float(state.bins.min_depth),
+        float(state.bins.max_depth), cfg.height, cfg.width)
+    print("\n".join(paths))
+    return paths
+
+
+def cmd_eval(args):
+    cfg = _apply_overrides(PRESETS[args.preset], args.set or [])
+
+    # stereo-trained models: fixed baseline scale, no median scaling
+    # (`manydepth/evaluate_depth.py:32,245-247`)
+    scale_factor = args.pred_depth_scale_factor
+    median_scaling = not args.disable_median_scaling
+    if args.eval_stereo:
+        from mal_tpu_torch.eval.postprocess import STEREO_SCALE_FACTOR
+        scale_factor = STEREO_SCALE_FACTOR
+        median_scaling = False
+
+    if args.ext_disp_to_eval:
+        # saved predictions, without running the model
+        from mal_tpu_torch.eval.postprocess import load_ext_disps
+        return _finish_eval(args, cfg, load_ext_disps(args.ext_disp_to_eval),
+                            median_scaling, scale_factor)
+    if not args.ckpt:
+        raise SystemExit("--ckpt is required unless --ext_disp_to_eval")
+
+    from mal_tpu_torch.eval.evaluate import infer_disparities
+
+    if _is_pth(args.ckpt):
+        from mal_tpu_torch.train.state import DepthBinTracker
+        from mal_tpu_torch.utils.checkpoint import load_pretrained
+
+        if cfg.method == "dynamicdepth":
+            # batch size 1: the reference's eval_mode indexes GT and doj
+            # masks per batch (`dynamicdepth/trainer.py:1177,1228-1230`)
+            from mal_tpu_torch.dynamic.evaluate import run_dynamic_eval
+
+            _need_gt(args)
+            loader = build_eval_loader(cfg, args.data_path, (0, -1, 1),
+                                       doj_root=args.doj_root, batch_size=1)
+            return _print(run_dynamic_eval(cfg, args.ckpt, loader, args.gt,
+                                           device=args.device))
+        if cfg.method == "dualrefine":
+            raise NotImplementedError(
+                "method='dualrefine': not yet ported (ROADMAP M5)")
+        from mal_tpu_torch.models import MALModel
+
+        folder = args.ckpt if os.path.isdir(args.ckpt) else \
+            os.path.dirname(args.ckpt)
+        model = MALModel(cfg, device=args.device, init_weights=False)
+        bins = DepthBinTracker.create()
+        load_pretrained(model, folder, bins=bins)
+    else:
+        cfg, state = load_train_state(args.ckpt, args.set or [], args.device)
+        model, bins = state.model, state.bins
+        if cfg.method == "dynamicdepth":
+            from mal_tpu_torch.dynamic.evaluate import evaluate_dynamic
+            from mal_tpu_torch.eval.evaluate import load_gt_depths
+
+            _need_gt(args)
+            loader = build_eval_loader(cfg, args.data_path, (0, -1, 1),
+                                       doj_root=args.doj_root, batch_size=1)
+            return _print(evaluate_dynamic(
+                cfg, model, iter(loader), load_gt_depths(args.gt),
+                float(bins.min_depth), float(bins.max_depth),
+                device=args.device))
+    loader = build_eval_loader(cfg, args.data_path)
+    disps = infer_disparities(
+        model, iter(loader), cfg, eval_teacher=args.eval_teacher,
+        min_depth_bin=float(bins.min_depth),
+        max_depth_bin=float(bins.max_depth),
+        zero_cost_volume=args.zero_cost_volume,
+        static_camera=args.static_camera, post_process=args.post_process,
+        device=args.device)
+    return _finish_eval(args, cfg, disps, median_scaling, scale_factor)
+
+
+def _need_gt(args) -> None:
+    if not args.gt:
+        raise SystemExit("dynamicdepth eval needs --gt (the eval_mode "
+                         "protocol computes doj metrics against GT)")
+
+
+def _print(results: dict) -> dict:
+    print(json.dumps(results, indent=2))
+    return results
+
+
+def _finish_eval(args, cfg, disps, median_scaling, scale_factor):
+    from mal_tpu_torch.eval.evaluate import (evaluate_depth_maps,
+                                             load_gt_depths)
+
+    if args.save_pred_disps:
+        from mal_tpu_torch.eval.postprocess import save_pred_disps
+        folder = "."
+        if args.ckpt:
+            folder = args.ckpt if os.path.isdir(args.ckpt) else \
+                os.path.dirname(args.ckpt) or "."
+        path = save_pred_disps(disps, folder, cfg.eval_split,
+                               eval_teacher=args.eval_teacher,
+                               zero_cost_volume=args.zero_cost_volume)
+        print(f"saved predicted disparities: {path}")
+    if args.no_eval:
+        print("evaluation disabled (--no_eval)")
+        return None
+    if cfg.eval_split == "benchmark":
+        # KITTI benchmark submission export, no local GT
+        # (`dualrefine/evaluate_depth.py:218-233`)
+        from mal_tpu_torch.eval.postprocess import export_benchmark_predictions
+        out_dir = os.path.join(os.path.dirname(args.gt) if args.gt else ".",
+                               "benchmark_predictions")
+        n = export_benchmark_predictions(np.asarray(disps), out_dir)
+        print(f"exported {n} benchmark predictions to {out_dir}")
+        return None
+    if not args.gt:
+        raise SystemExit("--gt is required unless --no_eval or "
+                         "eval_split=benchmark")
+    return _print(evaluate_depth_maps(
+        disps, load_gt_depths(args.gt), eval_split=cfg.eval_split,
+        median_scaling=median_scaling, pred_depth_scale_factor=scale_factor))
+
+
+def cmd_finetune_seg(args):
+    raise NotImplementedError(
+        "finetune-seg (Mask2Former fine-tuning): not yet ported (ROADMAP M7)")
+
+
+def cmd_export_seg(args):
+    raise NotImplementedError(
+        "export-seg (the temporal hint's instance cache, segment/cache.py): "
+        "not yet ported (ROADMAP M3)")
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("mal_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def device_flag(parser):
+        parser.add_argument("--device", default="cuda",
+                            help="torch device (default cuda, which needs a "
+                                 "card; cpu runs the plain PyTorch path)")
+
+    pt = sub.add_parser("train")
+    pt.add_argument("--preset", default="kitti", choices=list(PRESETS))
+    pt.add_argument("--data_path", required=True)
+    pt.add_argument("--set", nargs="*", help="config overrides key=value")
+    pt.add_argument("--seg_pkl", default=None,
+                    help="detectron2 .pkl Mask2Former weights (required for "
+                         "--set temporal=true/main_temporal=true)")
+    pt.add_argument("--load_pretrained", default=None,
+                    help="reference-layout .pth checkpoint dir to initialize "
+                         "from (--load_pretrained/--load_weights_folder)")
+    pt.add_argument("--imagenet_ckpt", default=None,
+                    help="torchvision ImageNet resnet18 .pth for trunk init "
+                         "(--weights_init pretrained)")
+    pt.add_argument("--mono_ckpt", default=None,
+                    help="checkpoint dir for teacher+pose nets only "
+                         "(--mono_weights_folder)")
+    pt.add_argument("--models_to_load", nargs="*", default=None,
+                    help="subset of sub-nets to take from --load_pretrained")
+    pt.add_argument("--resume", default=None,
+                    help="the port's checkpoint to resume mid-run")
+    pt.add_argument("--gt", default=None,
+                    help="gt depths for validation metrics (gt_depths.npz "
+                         "or a dir of NNN_depth.npy)")
+    pt.add_argument("--eval_data_path", default=None,
+                    help="data root for the validation split when it "
+                         "differs from --data_path (the reference's "
+                         "--cs_eval_path, `manydepth/trainer.py:296`)")
+    pt.add_argument("--no_eval", action="store_true",
+                    help="skip building the validation loader (checkpoints "
+                         "are written at validation, so none are)")
+    pt.add_argument("--coordinator", default=None,
+                    help="host0:port for multi-host training (not ported)")
+    pt.add_argument("--num_hosts", type=int, default=1,
+                    help="hosts in a multi-host run (not ported: only 1)")
+    pt.add_argument("--host_id", type=int, default=0,
+                    help="this host's index in a multi-host run (not "
+                         "ported: only 0)")
+    device_flag(pt)
+    pt.set_defaults(fn=cmd_train)
+
+    pe = sub.add_parser("eval")
+    pe.add_argument("--preset", default="kitti", choices=list(PRESETS))
+    pe.add_argument("--data_path", required=True)
+    pe.add_argument("--ckpt", default=None,
+                    help="the port's checkpoint (step_* dir or its parent) or "
+                         "a reference .pth dir; optional with "
+                         "--ext_disp_to_eval")
+    pe.add_argument("--gt", default=None,
+                    help="gt_depths.npz (optional with --no_eval or "
+                         "eval_split=benchmark)")
+    pe.add_argument("--doj_root", default=None,
+                    help="dynamic-object mask dir (method=dynamicdepth)")
+    pe.add_argument("--eval_teacher", action="store_true",
+                    help="evaluate the mono teacher instead of the student")
+    pe.add_argument("--post_process", action="store_true",
+                    help="Monodepth-v1 flip averaging (teacher only)")
+    pe.add_argument("--zero_cost_volume", action="store_true",
+                    help="behavioral probe: zero lookup poses")
+    pe.add_argument("--static_camera", action="store_true",
+                    help="behavioral probe: lookup frames = current frame")
+    pe.add_argument("--save_pred_disps", action="store_true",
+                    help="save the predicted disparity stack next to the "
+                         "checkpoint")
+    pe.add_argument("--ext_disp_to_eval", default=None,
+                    help="evaluate a saved .npy disparity stack instead of "
+                         "running inference")
+    pe.add_argument("--no_eval", action="store_true",
+                    help="skip metric computation (with --save_pred_disps)")
+    pe.add_argument("--disable_median_scaling", action="store_true")
+    pe.add_argument("--pred_depth_scale_factor", type=float, default=1.0)
+    pe.add_argument("--eval_stereo", action="store_true",
+                    help="stereo-trained model: scale 5.4, no median "
+                         "scaling")
+    pe.add_argument("--set", nargs="*")
+    device_flag(pe)
+    pe.set_defaults(fn=cmd_eval)
+
+    pp = sub.add_parser("export-pth")
+    pp.add_argument("--ckpt", required=True,
+                    help="the port's checkpoint (step_* dir or its parent)")
+    pp.add_argument("--out", required=True,
+                    help="output dir for the reference-layout .pth files")
+    pp.add_argument("--set", nargs="*")
+    device_flag(pp)
+    pp.set_defaults(fn=cmd_export_pth)
+
+    pf = sub.add_parser("finetune-seg", help="not yet ported (ROADMAP M7)")
+    pf.set_defaults(fn=cmd_finetune_seg)
+    px = sub.add_parser("export-seg", help="not yet ported (ROADMAP M3)")
+    px.set_defaults(fn=cmd_export_seg)
+
+    # the refused commands take mal_tpu's flags without parsing them
+    args, extra = p.parse_known_args(argv)
+    if extra and args.fn not in (cmd_finetune_seg, cmd_export_seg):
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -7,26 +7,40 @@ The CPU is used only when the caller names it, as the tests do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
-    """`None` -> `cuda` (raising if absent); anything else as given.
+    """`None` -> `cuda`; anything else as given; a CUDA device raises when
+    no card is present.
 
     On a CUDA device this also turns TF32 off for convolutions and matrix
     products: the port's main path is the fp32 exact recipe, and cuDNN
     would otherwise run fp32 convolutions in TF32 by default.
     """
-    if device is None:
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "mal_tpu_torch runs on a CUDA device and none is available; "
                 "pass device='cpu' to run the plain PyTorch path on the CPU")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda":
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return device
+
+
+def batch_to_device(batch: dict, device: torch.device) -> dict:
+    """A loader's batch (nested dicts of numpy arrays) as tensors on
+    `device`. To a CUDA device each array goes through pinned memory with
+    `non_blocking=True`, so the copy overlaps the host's next work."""
+    def move(a):
+        if isinstance(a, dict):
+            return {k: move(v) for k, v in a.items()}
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
+    return move(batch)

@@ -42,11 +42,13 @@ Tensor = torch.Tensor
 class DynDepthModel(nn.Module):
     """The DynamicDepth model on `device` (default: the GPU, raising if
     there is none), weights drawn from `generator` (default: seed 0) on the
-    CPU, then moved. `cfg.compute_dtype="bfloat16"` runs the trunks and
+    CPU, then moved (not with `init_weights=False`, as `MALModel`).
+    `cfg.compute_dtype="bfloat16"` runs the trunks and
     decoders in bf16, as `MALModel` does; the cost volume stays fp32."""
 
     def __init__(self, cfg: Config, device: str | torch.device | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 init_weights: bool = True):
         super().__init__()
         self.cfg = cfg
         device = resolve_device(device)
@@ -59,9 +61,8 @@ class DynDepthModel(nn.Module):
                                        dtype=dtype)
         self.pose_encoder = ResnetEncoder(18, num_input_images=2, dtype=dtype)
         self.pose = PoseDecoder(self.pose_encoder.num_ch_enc[-1], 2, dtype)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        init_like_flax(self, generator)
+        if init_weights:
+            init_like_flax(self, generator or torch.Generator().manual_seed(0))
         self.to(device)
 
     def _pose_from_pair(self, img_a: Tensor, img_b: Tensor):

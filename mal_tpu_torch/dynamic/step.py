@@ -23,7 +23,7 @@ from mal_tpu_torch.config import Config
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.dynamic.model import DynDepthModel
 from mal_tpu_torch.models.mal_model import to_nchw
-from mal_tpu_torch.train.lr_schedule import warmup_step_schedule
+from mal_tpu_torch.train.lr_schedule import make_schedule
 from mal_tpu_torch.train.state import TrainState, apply_gradients
 from mal_tpu_torch.train.step import check_supported, warp_frame
 
@@ -152,8 +152,7 @@ def make_dynamic_train_step(cfg: Config,
     device = resolve_device(device)
     check_supported(cfg)
     train_teacher = not cfg.freeze_teacher_and_pose
-    schedule = warmup_step_schedule(cfg.init_lr, cfg.learning_rate,
-                                    cfg.warmup_steps, cfg.decay_steps)
+    schedule = make_schedule(cfg)
 
     def train_step(state: TrainState, batch: dict, epoch: float = 0.0,
                    generator: torch.Generator | None = None,
@@ -170,7 +169,8 @@ def make_dynamic_train_step(cfg: Config,
             aug_draw=draws.get("matching_aug"),
             noise=draws.get("automask_noise"), generator=generator)
         total.backward()
-        apply_gradients(state.optimizer, schedule(state.step))
+        apply_gradients(state.optimizer, schedule(state.step),
+                        cfg.grad_clip_norm)
         if cfg.adaptive_bins and train_teacher:
             state.bins = state.bins.update(aux["mono_depth"], cfg.min_depth,
                                            cfg.depth_bin_ema)

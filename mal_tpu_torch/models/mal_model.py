@@ -62,13 +62,16 @@ def init_like_flax(module: nn.Module, generator: torch.Generator) -> None:
 class MALModel(nn.Module):
     """The ManyDepth+MAL model on `device` (default: the GPU, raising if
     there is none). Weights are drawn from `generator` (default: seed 0) on
-    the CPU, then moved. `cfg.compute_dtype="bfloat16"` (fast mode) runs the
-    trunks and the decoders' convolutions in bf16 on fp32 parameters
+    the CPU, then moved; `init_weights=False` skips that draw (seconds on
+    the CPU) for a model whose every weight is loaded next.
+    `cfg.compute_dtype="bfloat16"` (fast mode) runs the trunks and the
+    decoders' convolutions in bf16 on fp32 parameters
     (`mal_tpu/models/mal_model.py:42`); the pair-input PoseCNN, the poses,
     the disparities and the cost volume stay fp32."""
 
     def __init__(self, cfg: Config, device: str | torch.device | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 init_weights: bool = True):
         super().__init__()
         self.cfg = cfg
         device = resolve_device(device)
@@ -88,9 +91,8 @@ class MALModel(nn.Module):
                                               dtype=dtype)
             self.pose = PoseDecoder(self.pose_encoder.num_ch_enc[-1], 2,
                                     dtype)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        init_like_flax(self, generator)
+        if init_weights:
+            init_like_flax(self, generator or torch.Generator().manual_seed(0))
         self.to(device)
 
     # ------------------------------------------------------------------

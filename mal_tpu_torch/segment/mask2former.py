@@ -94,7 +94,8 @@ class Mask2Former(nn.Module):
     """The segmenter on `device` (default: the GPU, raising if there is
     none), with flax-style random weights from `generator` (default: seed
     0), drawn on the CPU and then moved; `load_jax_mask2former` or a
-    detectron2 state dict replaces them.
+    detectron2 state dict replaces them (`init_weights=False` skips the
+    draw, seconds on the CPU, for a model loaded next).
 
     `bf16_backbone` (fast mode) runs the Swin blocks' and the pixel
     decoder's FFN Linears in bf16; `fused_swin` runs every Swin block as
@@ -105,7 +106,8 @@ class Mask2Former(nn.Module):
                  num_queries: int = 100,
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None,
-                 bf16_backbone: bool = False, fused_swin: bool = False):
+                 bf16_backbone: bool = False, fused_swin: bool = False,
+                 init_weights: bool = True):
         super().__init__()
         device = resolve_device(device)
         self.swin_size = swin_size
@@ -118,10 +120,10 @@ class Mask2Former(nn.Module):
             bf16_compute=bf16_backbone)
         self.sem_seg_head.predictor = MaskedTransformerDecoder(
             num_classes=num_classes, num_queries=num_queries)
-        if generator is None:
-            generator = torch.Generator().manual_seed(0)
-        with torch.no_grad():
-            init_like_flax(self, generator)
+        if init_weights:
+            with torch.no_grad():
+                init_like_flax(self, generator
+                               or torch.Generator().manual_seed(0))
         self.eval()
         self.requires_grad_(False)   # frozen
         self.to(device)

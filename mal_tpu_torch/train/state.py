@@ -17,6 +17,7 @@ from mal_tpu_torch.config import Config
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.losses import LossBalancerState
 from mal_tpu_torch.models.mal_model import MALModel
+from mal_tpu_torch.train.lr_schedule import make_schedule
 
 Tensor = torch.Tensor
 
@@ -68,12 +69,25 @@ def sanitize_grads(params) -> None:
             p.grad = torch.where(torch.isfinite(p.grad), p.grad, 0.0)
 
 
-def apply_gradients(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """One optimizer update at `lr` from the parameters' `.grad`: the
-    non-finite entries set to 0, then Adam (optax's `chain(sanitize_grads(),
-    adam(schedule))` in `mal_tpu`)."""
+def apply_gradients(optimizer: torch.optim.Optimizer, lr: float,
+                    clip_norm: float = 0.0) -> None:
+    """One optimizer update at `lr` from the parameters' `.grad`, in
+    optax's order (`mal_tpu/train/state.py:155-159`): the non-finite
+    entries set to 0, then, with `clip_norm`, every gradient scaled by
+    clip_norm / norm where their global norm reaches it
+    (`optax.clip_by_global_norm`), then Adam. The norm covers the
+    optimizer's parameters only, so a frozen sub-net, which it leaves out,
+    does not count, as under `mal_tpu`'s `multi_transform`."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    sanitize_grads(params)
+    if clip_norm:
+        grads = [p.grad for p in params if p.grad is not None]
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        scale = torch.where(norm < clip_norm, 1.0, clip_norm / norm)
+        for g in grads:
+            g.mul_(scale)
     for group in optimizer.param_groups:
-        sanitize_grads(group["params"])
         group["lr"] = lr
     optimizer.step()
 
@@ -100,26 +114,27 @@ def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Adam:
     learning rate before each update; a frozen sub-net is left out, so it
     neither moves nor advances Adam's moments, as optax's `set_to_zero`
     partition does."""
-    if cfg.lr_scheduler != "warmup_step" or cfg.grad_clip_norm:
-        raise NotImplementedError(
-            "not yet ported: only the warmup_step schedule without gradient "
-            "clipping")
+    make_schedule(cfg)   # raises for a schedule that does not exist
     return torch.optim.Adam(trainable_parameters(cfg, model), lr=cfg.init_lr,
                             betas=(0.9, 0.999), eps=1e-8)
 
 
 def create_train_state(cfg: Config, device: str | torch.device | None = None,
-                       generator: torch.Generator | None = None) -> TrainState:
+                       generator: torch.Generator | None = None,
+                       init_weights: bool = True) -> TrainState:
     """A fresh state on `device` (default: the GPU, raising if there is
-    none), with weights drawn from `generator` (default: seed 0): a
-    `MALModel`, or a `DynDepthModel` for `method="dynamicdepth"`."""
+    none), with weights drawn from `generator` (default: seed 0; not with
+    `init_weights=False`, for a state loaded next): a `MALModel`, or a
+    `DynDepthModel` for `method="dynamicdepth"`."""
     device = resolve_device(device)
     if cfg.method == "dynamicdepth":
         from mal_tpu_torch.dynamic.model import DynDepthModel
 
-        model = DynDepthModel(cfg, device=device, generator=generator)
+        model = DynDepthModel(cfg, device=device, generator=generator,
+                              init_weights=init_weights)
     else:
-        model = MALModel(cfg, device=device, generator=generator)
+        model = MALModel(cfg, device=device, generator=generator,
+                         init_weights=init_weights)
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(cfg, model),
                       bins=DepthBinTracker.create(device=device),

@@ -26,12 +26,13 @@ import torch
 
 from mal_tpu_torch import geometry, losses
 from mal_tpu_torch.config import Config
+from mal_tpu_torch.data.mono_dataset import SEG_CACHE_REFUSAL
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.models.mal_model import MALModel, to_nchw
 from mal_tpu_torch.ops.interp import grid_sample
 from mal_tpu_torch.ops.precision import compute_dtype_of
 from mal_tpu_torch.temporal import image_synthesis
-from mal_tpu_torch.train.lr_schedule import warmup_step_schedule
+from mal_tpu_torch.train.lr_schedule import make_schedule
 from mal_tpu_torch.train.state import TrainState, apply_gradients
 
 Tensor = torch.Tensor
@@ -41,29 +42,30 @@ def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
     """Raise for the options whose code paths are not ported yet, and for
     the temporal hint without a segmenter."""
     dynamic = cfg.method == "dynamicdepth"
+    # each with the ROADMAP item where it waits
     unported = {
-        "method 'dualrefine'": cfg.method not in ("manydepth", "dynamicdepth"),
-        "pareto": cfg.distil and cfg.pareto and not dynamic,
-        "remat": cfg.remat,
-        "loss_pct": cfg.loss_pct,
-        "num_depth_shards > 1": cfg.num_depth_shards > 1,
-        "train_teacher_only without dynamicdepth": (cfg.train_teacher_only
-                                                    and not dynamic),
+        "method 'dualrefine'": ("M5", cfg.method not in ("manydepth",
+                                                         "dynamicdepth")),
+        "pareto": ("M4", cfg.distil and cfg.pareto and not dynamic),
+        "remat": ("M4", cfg.remat),
+        "loss_pct": ("M4", cfg.loss_pct),
+        "num_depth_shards > 1": ("M6", cfg.num_depth_shards > 1),
+        "num_data_shards > 1": ("M6", cfg.num_data_shards > 1),
+        "train_teacher_only without dynamicdepth": (
+            "M4", cfg.train_teacher_only and not dynamic),
     }
-    for name, on in unported.items():
+    for name, (item, on) in unported.items():
         if on:
-            raise NotImplementedError(f"{name}: not yet ported")
+            raise NotImplementedError(f"{name}: not yet ported (ROADMAP {item})")
     compute_dtype_of(cfg.compute_dtype)   # raises on an unknown type
     if dynamic:
         if cfg.online_doj:
             raise NotImplementedError(
                 "online_doj: the online dynamic-object masks wait for the "
-                "port of segment/doj.py")
+                "port of segment/doj.py (ROADMAP M7)")
         return
     if cfg.seg_cache_root is not None:
-        raise NotImplementedError(
-            "seg_cache_root: the precomputed instance cache waits for the "
-            "port of the host loop and its I/O")
+        raise NotImplementedError(SEG_CACHE_REFUSAL)
     if (cfg.temporal or cfg.main_temporal) and seg_fn is None:
         raise ValueError("cfg.temporal requires a segmentation seg_fn")
     if cfg.learn_ens:
@@ -278,8 +280,7 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
     device = resolve_device(device)
     check_supported(cfg, seg_fn)
     train_teacher = not cfg.freeze_teacher_and_pose
-    schedule = warmup_step_schedule(cfg.init_lr, cfg.learning_rate,
-                                    cfg.warmup_steps, cfg.decay_steps)
+    schedule = make_schedule(cfg)
 
     def train_step(state: TrainState, batch: dict, epoch: float = 0.0,
                    generator: torch.Generator | None = None,
@@ -298,7 +299,8 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
                              noise=draws.get("automask_noise"),
                              generator=generator)
         total.backward()
-        apply_gradients(state.optimizer, schedule(state.step))
+        apply_gradients(state.optimizer, schedule(state.step),
+                        cfg.grad_clip_norm)
 
         # adaptive depth bins from the teacher (`trainer.py:631-634`)
         if cfg.adaptive_bins and train_teacher:

@@ -76,13 +76,13 @@ def jax_variables(cfg: Config, seed: int = 0):
 def _blank_model(cfg: Config):
     from mal_tpu_torch.models import MALModel
 
-    return MALModel(torch_cfg(cfg), device="cpu")
+    return MALModel(torch_cfg(cfg), device="cpu", init_weights=False)
 
 
 def port_model(cfg: Config, params, batch_stats):
     """The port's MALModel on the CPU, carrying the flax weights. The nets
-    are copied from one built per config: their random initialisation is
-    overwritten anyway, and drawing it takes seconds."""
+    are copied from one built per config without drawing its weights
+    (seconds): the strict load overwrites every one."""
     from mal_tpu_torch.convert.jax_params import load_jax_variables
 
     model = copy.deepcopy(_blank_model(cfg))
@@ -134,14 +134,21 @@ def check_bf16(got, want, exact, atol, rtol=0.0, share=SHARE, what=""):
 
 def random_mal_variables(cfg: Config, seed: int = 0):
     """Random (params, batch_stats) on the shapes of `mal_tpu`'s MALModel
-    tree, as numpy, without running or compiling its initialisers: kernels
-    normal at 1 / sqrt(fan_in), scales near 1, biases and running means
-    small, running variances near 1."""
-    from mal_tpu.models import MALModel as JaxMALModel
+    tree (its DynDepthModel's for `method="dynamicdepth"`), as numpy,
+    without running or compiling its initialisers: kernels normal at
+    1 / sqrt(fan_in), scales near 1, biases and running means small,
+    running variances near 1."""
+    batch = np_batch(cfg, seed, batch_size=1)
+    if cfg.method == "dynamicdepth":
+        from mal_tpu.dynamic.model import DynDepthModel as JaxModel
+        for k in ("doj_mask", "doj_mask-1", "doj_mask+1"):
+            batch[k] = np.zeros((1, cfg.height, cfg.width), np.float32)
+    else:
+        from mal_tpu.models import MALModel as JaxModel
 
-    batch = to_jax(np_batch(cfg, seed, batch_size=1))
+    batch = to_jax(batch)
     shapes = jax.eval_shape(
-        lambda r, b: JaxMALModel(cfg).init(
+        lambda r, b: JaxModel(cfg).init(
             {"params": r}, b, jnp.asarray(0.1), jnp.asarray(10.0), r,
             train=True), jax.random.PRNGKey(0), batch)
     rng = np.random.RandomState(seed)

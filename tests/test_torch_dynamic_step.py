@@ -52,8 +52,9 @@ from mal_tpu_torch.train.state import (DepthBinTracker, TrainState,
                                        create_train_state, make_optimizer)
 from mal_tpu_torch.train.step import make_train_step
 
-from test_torch_common import (END_TO_END, as_f32, np_batch, to_jax,
-                               to_numpy, to_torch, torch_cfg)
+from test_torch_common import (END_TO_END, as_f32, np_batch,
+                               random_mal_variables, to_jax, to_numpy,
+                               to_torch, torch_cfg)
 
 CFG = JConfig(height=64, width=96, num_depth_bins=16, batch_size=2,
               method="dynamicdepth", cv_min=True, cv_set_1=True,
@@ -81,30 +82,6 @@ def _batch():
     return batch
 
 
-def _variables(cfg, batch, seed=0):
-    """Random (params, batch_stats) on the shapes of `mal_tpu`'s
-    DynDepthModel tree, as numpy, without compiling its initialisers."""
-    shapes = jax.eval_shape(
-        lambda r, b: JDynModel(cfg).init(
-            {"params": r}, b, jnp.asarray(0.1), jnp.asarray(10.0), r,
-            train=True), jax.random.PRNGKey(0), to_jax(batch))
-    rng = np.random.RandomState(seed)
-
-    def draw(path, s):
-        name = path[-1].key
-        r = rng.randn(*s.shape)
-        if name == "kernel":
-            a = r / np.sqrt(np.prod(s.shape[:-1]))
-        elif name in ("scale", "var"):
-            a = 1.0 + 0.1 * np.abs(r)
-        else:                      # bias, mean
-            a = 0.1 * r
-        return a.astype(np.float32)
-
-    tree = jax.tree_util.tree_map_with_path(draw, shapes)
-    return tree["params"], tree["batch_stats"]
-
-
 def _run_jitted(fn, *args):
     """`jax.jit(fn)(*args)`, compiled without LLVM's expensive passes: the
     same numbers (the loss agrees to the bit), a fifth less compile time,
@@ -124,12 +101,13 @@ def _draws(key):
 
 @functools.lru_cache(maxsize=None)
 def _blank_model(cfg):
-    return DynDepthModel(torch_cfg(cfg), device="cpu")
+    return DynDepthModel(torch_cfg(cfg), device="cpu", init_weights=False)
 
 
 def _port_model(cfg, params, stats):
     """The port's model carrying the flax weights: a copy of one built per
-    config, whose random initialisation (seconds to draw) is overwritten."""
+    config without drawing its weights (seconds): the strict load
+    overwrites every one."""
     model = copy.deepcopy(_blank_model(cfg))
     load_jax_dynamic_variables(model, params, stats)
     return model
@@ -138,7 +116,7 @@ def _port_model(cfg, params, stats):
 @pytest.fixture(scope="module")
 def setup():
     batch = _batch()
-    params, stats = _variables(CFG, batch)
+    params, stats = random_mal_variables(CFG)
     return batch, params, stats, _port_model(CFG, params, stats)
 
 
