@@ -35,6 +35,13 @@ Phases, each of which must pass or the script exits non-zero:
 5. the path without the temporal hint: `create_train_state`, N training
    steps at `Config()` (192x640, batch 12, 96 depth bins, ResNet-18, fp32)
    on a seeded synthetic batch and one `eval_forward`;
+5b. the ManyDepth options at `Config()`, 2 steps each from the same seeded
+   weights, batch and draws: `Config()` itself, `remat=True` (first loss
+   within 1e-4 relative and BN running statistics within 1e-5 of
+   `Config()`'s, peak memory strictly below it), `pareto=True` (w_ori +
+   w_distil = 1 within 1e-6, w_distil in [0.3, 0.9]) and
+   `train_teacher_only=True` (the student's parameters bit-identical, every
+   teacher and pose sub-net moved); K1 once a step on each;
 6. the temporal hint in fp32: `Config(temporal=True, ins_threshold=0.0)`
    with the full-width Swin-L Mask2Former (seeded random weights; the
    lowered threshold makes matching and synthesis work on every item), N
@@ -44,6 +51,12 @@ Phases, each of which must pass or the script exits non-zero:
    bf16_backbone=True, fused_swin=True)`, N steps and one `eval_forward`,
    then the segmenter forward timed fused bf16, unfused bf16 and fp32, and
    the share of mask bits on which the fast segmenter leaves the fp32 one;
+7b. the cached hint in fast mode: phase 7's configuration with
+   `seg_cache_root` set and the batch carrying `seg_*` from a forward of
+   the same segmenter on the same images (mask bits off a second forward's
+   at most 1e-3), 3 steps beside 3 online steps from the same weights and
+   draws, in turns: first loss within 1e-3 relative of the online one, step
+   ms of both; K2 = K3 = 48 and K5 = 12 a cached step (online 72 / 18);
 8. the DynamicDepth path (`benchmarks/bench_methods.py:59-61`):
    `Config(height=192, width=512, batch_size=14, method="dynamicdepth",
    cv_min=True, cv_set_1=True, cv_pool_th=0.15)` on a seeded batch with
@@ -58,12 +71,17 @@ Phases, each of which must pass or the script exits non-zero:
    `--profile` the device idle share of one trainer step), `eval` of the
    checkpoint and, after `export-pth`, of its `.pth` directory (abs_rel
    within 1e-6), `train --seg_pkl` with the hint from a `.pkl` written from
-   a seeded Swin-L Mask2Former (2 steps), DynamicDepth `train` (2 steps,
-   one validation) and its `eval --doj_root` on mask files.
+   a seeded Swin-L Mask2Former (2 steps), `export-seg` of the same split
+   with that `.pkl` in fp32 (2 files a frame; K4 = 24 and K5 = 6 a forward
+   of batch 12; the export's time a file) and its rerun (0 files, 0
+   launches), `train` with the hint from that cache (2 steps; K2 = K3 = 48,
+   K5 = 12 a step), DynamicDepth `train` (2 steps, one validation) and its
+   `eval --doj_root` on mask files.
 Phases 5 to 9 set every kernel's launch count to 0 just before each path
-(in phase 9, each command) and read the counts just after; each kernel
-must have launched exactly as often as its path calls it (phase 7: K2 =
-K3 = 72 per step, K4 = 0), and at least once on some path. K5b is
+(in phase 5b each option, in 7b each step, in phase 9 each command) and
+read the counts just after; each kernel must have launched exactly as
+often as its path calls it (phase 7: K2 = K3 = 72 per step, K4 = 0), and
+at least once on some path. K5b is
 exempt: nothing calls it, in `mal_tpu` either, and its phase is its
 launch. The script then prints the `kernels`
 JSON line (launches per path and in all), the card's line, and as the last
@@ -157,23 +175,6 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over `reps` calls, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def k1_inputs(device="cuda", BF=12, h=48, w=160, C=64, D=96, seed=0):
     """Main-path shaped K1 inputs (cur, lookup, M, t, bins): poses as
     tests/test_pallas_cv.py draws them, with a small rotation, and one
@@ -258,6 +259,7 @@ def k1_phase() -> dict:
 
     from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
         plane_sweep_diffs, plane_sweep_diffs_reference)
+    from mal_tpu_torch.utils.profiling import cuda_time_ms
 
     cur, lookup, M, t, bins = k1_inputs()
     BF, h, w, C = cur.shape
@@ -311,6 +313,7 @@ def k6_phase() -> dict:
 
     from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
         plane_sweep_diffs_occ, plane_sweep_diffs_occ_reference)
+    from mal_tpu_torch.utils.profiling import cuda_time_ms
 
     pool_th = DYNAMIC["cv_pool_th"]
     cur, lookup, M, t, bins = k1_inputs(BF=14, w=128, seed=1)
@@ -479,6 +482,7 @@ def k4_phase() -> dict:
     from mal_tpu_torch.ops.cuda.window_attention import (
         relative_position_index, window_attention, window_attention_reference)
     from mal_tpu_torch.segment.swin import shift_mask
+    from mal_tpu_torch.utils.profiling import cuda_time_ms
 
     images, ws = 12, SWIN_WINDOW
     N = ws * ws
@@ -563,6 +567,7 @@ def k5_phase() -> dict:
 
     from mal_tpu_torch.ops.cuda.deform_sample import (
         ms_deform_attn_core, ms_deform_attn_core_per_level)
+    from mal_tpu_torch.utils.profiling import cuda_time_ms
 
     # the pixel decoder at 192x640, batch 12: res5 / res4 / res3 levels
     B, heads, ch, P = 12, 8, 32, 4
@@ -765,6 +770,7 @@ def k2_phase(profile: bool = False) -> dict:
                                                    swin_attn_reference)
     from mal_tpu_torch.segment.swin import (shift_mask, window_partition,
                                             window_reverse)
+    from mal_tpu_torch.utils.profiling import cuda_time_ms
 
     B, ws = 12, SWIN_WINDOW
     N = ws * ws
@@ -845,6 +851,7 @@ def k3_phase(profile: bool = False) -> dict:
 
     from mal_tpu_torch.ops.cuda.swin_block import (swin_mlp_fused,
                                                    swin_mlp_reference)
+    from mal_tpu_torch.utils.profiling import cuda_time_ms
 
     B = 12
     shapes = []
@@ -905,6 +912,7 @@ def k5b_phase() -> dict:
 
     from mal_tpu_torch.ops.cuda.deform_sample import (
         deform_sample_fused, deform_sample_fused_reference)
+    from mal_tpu_torch.utils.profiling import cuda_time_ms
 
     G, ch, T, S, real = 96, 32, 5, 2048, 10080
     shapes = ((6, 20), (12, 40), (24, 80))
@@ -1000,36 +1008,6 @@ def small_temporal_reference_phase(fast: bool = False) -> None:
           "GPU temporal loss != CPU temporal loss")
 
 
-def idle_share(one_step):
-    """Run `one_step()` once under torch.profiler and print the device idle
-    share: 1 - busy time / host-clock time, the busy time being the union of
-    the device events' intervals (cuDNN may overlap kernels on its own
-    streams; the profiler's buffer flushes are not work of the step).
-    Returns (idle share, busy ms, the profile)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name != "Buffer Flush")
-    busy_us, reach = 0.0, float("-inf")
-    for a, b in spans:
-        busy_us += max(0.0, b - max(a, reach))
-        reach = max(reach, b)
-    busy_ms = busy_us / 1e3
-    idle = 1 - busy_ms / wall_ms
-    print(f"profiled step {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms: "
-          f"device idle share {idle:.3f}")
-    return idle, busy_ms, prof
-
-
 def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
     """`create_train_state`, `steps` training steps and one `eval_forward`
     at `cfg` on a seeded synthetic batch, with every kernel's launch count
@@ -1041,6 +1019,7 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
                                               synthetic_doj_masks)
     from mal_tpu_torch.train.state import create_train_state
     from mal_tpu_torch.train.step import make_train_step
+    from mal_tpu_torch.utils.profiling import idle_share
 
     dynamic = cfg.method == "dynamicdepth"
     t0 = time.perf_counter()
@@ -1138,6 +1117,198 @@ def main_path_phase(steps: int, profile: bool) -> dict[str, int]:
     return launches
 
 
+def _draws(cfg, seed: int) -> dict:
+    """A step's two random draws on the card, made from `seed`."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    B, H, W = cfg.batch_size, cfg.height, cfg.width
+    return {"matching_aug": torch.rand(B, generator=g).cuda(),
+            "automask_noise": torch.randn((B, 1, H, W), generator=g).cuda()}
+
+
+def _timed_steps(cfg, weights, batch, draws, steps: int, every: list,
+                 seg_fn=None) -> dict:
+    """`steps` training steps at `cfg` from `weights` with the draws
+    injected, every kernel's count set to 0 just before and read just after:
+    the state, each step's metrics and ms, the peak memory (GiB) and the
+    launches, plus the BN running statistics after the first step."""
+    import torch
+
+    from mal_tpu_torch.train.state import create_train_state
+    from mal_tpu_torch.train.step import make_train_step
+
+    state = create_train_state(cfg, init_weights=False)
+    state.model.load_state_dict(weights)
+    step = make_train_step(cfg, seg_fn=seg_fn)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in every:
+        fn.launches = 0
+    out = {"metrics": [], "ms": []}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, 0.0, draws=draws)
+        m = {k: v.item() for k, v in m.items()}
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["metrics"].append(m)
+        check(all(v == v and abs(v) != float("inf") for v in m.values()),
+              f"non-finite metrics at step {i}: {m}")
+        if i == 0:
+            out["bn"] = {k: v.cpu().clone()
+                         for k, v in state.model.state_dict().items()
+                         if "running" in k}
+    out["launches"] = {fn.__name__: fn.launches for fn in every}
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["state"] = state
+    return out
+
+
+def options_phase(every: list, steps: int = 2) -> dict[str, dict[str, int]]:
+    """The ManyDepth options at `Config()`'s full width (192x640, batch 12,
+    96 bins, fp32), each from the same seeded weights, batch and draws:
+    `pareto`, `remat` beside a twin without it (which is `Config()`
+    itself), and `train_teacher_only`. K1 launches once a step on each."""
+    import torch
+
+    from mal_tpu_torch.config import Config
+    from mal_tpu_torch.data.synthetic import synthetic_batch
+    from mal_tpu_torch.train.state import create_train_state
+
+    base = Config()
+    weights = {k: v.clone() for k, v in
+               create_train_state(base).model.state_dict().items()}
+    batch = synthetic_batch(base, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    draws = _draws(base, 5)
+    runs, by_path = {}, {}
+    card = card_line()
+    for name, option in (("config", {}), ("remat", {"remat": True}),
+                         ("pareto", {"pareto": True}),
+                         ("teacher_only", {"train_teacher_only": True})):
+        run = _timed_steps(base.replace(**option), weights, batch, draws,
+                           steps, every)
+        launches = run["launches"]
+        print(f"option {name} at Config() 192x640 batch 12, 96 "
+              f"bins, fp32: step ms {', '.join(f'{t:.2f}' for t in run['ms'])}"
+              f", peak memory {run['peak_gib']:.2f} GiB, first loss "
+              f"{run['metrics'][0]['loss']:.6f}; launches {launches} ({card})")
+        for kernel, n in launches.items():
+            want = steps if kernel == "plane_sweep_diffs" else 0
+            check(n == want, f"{name}: {kernel} launched {n} times, not {want}")
+        if name == "teacher_only":
+            moved = {k.split(".")[0] for k, p in
+                     run["state"].model.named_parameters()
+                     if not torch.equal(p, weights[k])}
+            print(f"teacher_only: sub-nets whose parameters moved {moved}")
+            check(moved == {"mono_encoder", "mono_depth", "pose_encoder",
+                            "pose"}, "teacher_only moved the student or "
+                  "left a teacher sub-net where it was")
+        run.pop("state")
+        runs[name] = run
+        by_path[f"option_{name}"] = launches
+        torch.cuda.empty_cache()
+
+    for i, m in enumerate(runs["pareto"]["metrics"]):
+        w0, w1 = m["w_ori"], m["w_distil"]
+        print(f"pareto step {i}: w_ori {w0!r} w_distil {w1!r}")
+        check(abs(w0 + w1 - 1.0) <= 1e-6, "pareto weights do not sum to 1")
+        check(0.3 - 1e-6 <= w1 <= 0.9 + 1e-6, "pareto w_distil out of bounds")
+    twin, remat = runs["config"], runs["remat"]
+    l0, l1 = twin["metrics"][0]["loss"], remat["metrics"][0]["loss"]
+    bn_gap = max((remat["bn"][k] - v).abs().max().item()
+                 for k, v in twin["bn"].items())
+    print(f"remat against its twin: first loss {l1!r} / {l0!r}, BN running "
+          f"statistics after the first step at most {bn_gap:.3e} apart; peak "
+          f"memory {remat['peak_gib']:.3f} / {twin['peak_gib']:.3f} GiB "
+          f"({card})")
+    check(abs(l1 - l0) <= 1e-4 * abs(l0), "remat changed the loss")
+    check(bn_gap <= 1e-5, "remat moved the BN running statistics")
+    check(remat["peak_gib"] < twin["peak_gib"], "remat did not lower the "
+          "peak memory")
+    return by_path
+
+
+def cached_hint_phase(seg_fn, every: list, steps: int = 3
+                      ) -> dict[str, dict[str, int]]:
+    """The hint in fast mode with the current frame's instances from the
+    batch (`seg_cache_root`), beside the online step from the same weights
+    and draws: the batch carries `seg_*` from one forward of the same fused
+    segmenter on the same images. `steps` steps of each, in turns."""
+    import torch
+
+    from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
+    from mal_tpu_torch.data.synthetic import synthetic_batch
+    from mal_tpu_torch.train.state import create_train_state
+    from mal_tpu_torch.train.step import make_train_step
+
+    online = Config(temporal=True, ins_threshold=0.0, **TRAIN_FAST_SETTINGS)
+    cached = online.replace(seg_cache_root="synthetic")
+    batch = synthetic_batch(online,
+                            torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    inst = seg_fn(batch["color"]["0"])
+    again = seg_fn(batch["color"]["0"]).masks
+    flips = (inst.masks != again).float().mean().item()
+    print(f"cached hint: mask bits on which two forwards of the fused "
+          f"segmenter differ {flips:.2e} (max {SEG_MAX_BIT_FLIPS})")
+    check(flips <= SEG_MAX_BIT_FLIPS, "the cached instances are not the "
+          "online ones")
+    batch_c = dict(batch, seg_masks=inst.masks, seg_classes=inst.classes,
+                   seg_scores=inst.scores, seg_valid=inst.valid)
+    weights = {k: v.clone() for k, v in
+               create_train_state(online).model.state_dict().items()}
+    draws = _draws(online, 6)
+    states, fns = {}, {}
+    for name, cfg in (("online", online), ("cached", cached)):
+        states[name] = create_train_state(cfg, init_weights=False)
+        states[name].model.load_state_dict(weights)
+        fns[name] = make_train_step(cfg, seg_fn=seg_fn)
+    ms = {"online": [], "cached": []}
+    loss0, cached_launches = {}, {}
+    for i in range(steps):
+        for name, b in (("online", batch), ("cached", batch_c)):
+            for fn in every:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[name], m = fns[name](states[name], b, 0.0, draws=draws)
+            loss, items = m["loss"].item(), m["syn_items"].item()
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            launches = {fn.__name__: fn.launches for fn in every}
+            forwards = 3 if name == "online" else 2
+            want = {"plane_sweep_diffs": 1, "swin_attn_fused": 24 * forwards,
+                    "swin_mlp_fused": 24 * forwards,
+                    "ms_deform_attn_core": 6 * forwards}
+            for kernel, n in launches.items():
+                check(n == want.get(kernel, 0), f"{name} hint step: {kernel} "
+                      f"launched {n} times, not {want.get(kernel, 0)}")
+            check(loss == loss and items > 0, f"{name} hint step {i}: loss "
+                  f"{loss}, {items} items with a matched pair")
+            loss0.setdefault(name, loss)
+            if name == "cached":
+                cached_launches = {k: cached_launches.get(k, 0) + n
+                                   for k, n in launches.items()}
+    gap = abs(loss0["cached"] - loss0["online"])
+    # the first step of each carries its own warm-up
+    saved = (statistics.median(ms["online"][1:])
+             - statistics.median(ms["cached"][1:]))
+    print(f"cached hint, fast mode, Config() 192x640 batch 12: first loss "
+          f"cached {loss0['cached']!r}, online {loss0['online']!r} (rtol "
+          f"{TEMPORAL_LOSS_RTOL}); step ms cached "
+          f"{', '.join(f'{t:.2f}' for t in ms['cached'])}, online "
+          f"{', '.join(f'{t:.2f}' for t in ms['online'])}; online - cached, "
+          f"medians after the first step: {saved:.2f} ms ({card_line()}); "
+          f"launches of the cached "
+          f"steps {cached_launches}")
+    check(gap <= TEMPORAL_LOSS_RTOL * abs(loss0["online"]),
+          "the cached step's loss is not the online step's")
+    return {"fast_cached": cached_launches}
+
+
 def _segmenter_forward_ms(seg_fn, images, reps: int = 3) -> list[float]:
     import torch
 
@@ -1151,11 +1322,11 @@ def _segmenter_forward_ms(seg_fn, images, reps: int = 3) -> list[float]:
     return out
 
 
-def temporal_path_phase(steps: int, profile: bool, fast: bool) -> dict[str, int]:
+def temporal_path_phase(steps: int, profile: bool, fast: bool):
     """The temporal hint with the full-width Swin-L Mask2Former: in exact
     fp32 (the unfused blocks around K4), or with `fast` in fast mode, this
     slice's main path (bf16 nets and payloads, every Swin block as K2 and
-    K3)."""
+    K3). Returns the launches and the segmenter."""
     import torch
 
     from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
@@ -1256,7 +1427,7 @@ def temporal_path_phase(steps: int, profile: bool, fast: bool) -> dict[str, int]
                   f"{FAST_VS_FP32_MAX_BIT_FLIPS})")
             check(flips <= FAST_VS_FP32_MAX_BIT_FLIPS,
                   f"the {label} segmenter's masks are far from the fp32 ones")
-    return launches
+    return launches, seg_fn
 
 
 def dynamic_path_phase(steps: int, profile: bool, fast: bool,
@@ -1339,8 +1510,10 @@ def cli_phase(profile: bool, every: list) -> dict[str, dict[str, int]]:
     validation, one checkpoint), `eval` of the checkpoint, `export-pth`,
     `eval` of the `.pth` directory (abs_rel within 1e-6), `train --seg_pkl`
     with the temporal hint (2 steps), DynamicDepth `train` (2 steps, one
-    validation) and its `eval --doj_root`. Each command runs with every
-    kernel's count set to 0 just before and read just after."""
+    validation) and its `eval --doj_root`; after the hint's run,
+    `export-seg` of its split, a rerun, and `train` from that cache. Each
+    command runs with every kernel's count set to 0 just before and read
+    just after."""
     import shutil
 
     import torch
@@ -1351,6 +1524,7 @@ def cli_phase(profile: bool, every: list) -> dict[str, dict[str, int]]:
     from mal_tpu_torch.data.synthetic import synthetic_batch
     from mal_tpu_torch.device import batch_to_device
     from mal_tpu_torch.segment.mask2former import Mask2Former
+    from mal_tpu_torch.utils.profiling import idle_share
 
     t_phase = time.perf_counter()
     root = os.path.abspath(os.path.join("build", "chip_smoke_cli"))
@@ -1477,7 +1651,49 @@ def cli_phase(profile: bool, every: list) -> dict[str, dict[str, int]]:
               f"steps, not {steps}")
         check(all(m["syn_items"] > 0 for _, m in trainer.logger.history),
               "a temporal step had no matched pair")
-        print(f"cli temporal train: {_steps_ms(trainer)}")
+        online_ms = _steps_ms(trainer)
+        print(f"cli temporal train: {online_ms}")
+        del trainer
+
+        # the instance cache of the same split: exported in the preset's
+        # exact fp32 (K4 and K5 in each forward of batch 12), a rerun that
+        # finds every file, then the hint trained from the cache
+        with open(os.path.join("splits", "smoke_24", "train_files.txt")) as f:
+            files = 2 * len({line.strip() for line in f if line.strip()})
+        forwards = -(-files // 12)
+        export = ["export-seg", "--data_path", paths["data_path"],
+                  "--seg_pkl", "seg.pkl", "--out", "segcache", "--set",
+                  "split='smoke_24'"]
+        t0 = time.perf_counter()
+        n = counted("cli_export_seg", export,
+                    {"window_attention": 24 * forwards,
+                     "ms_deform_attn_core": 6 * forwards})
+        export_s = time.perf_counter() - t0
+        check(n == files == len(os.listdir("segcache")),
+              f"export-seg wrote {n} files, not {files}")
+        t0 = time.perf_counter()
+        n = counted("cli_export_seg_again", export, {})
+        again_s = time.perf_counter() - t0
+        check(n == 0, f"the rerun of export-seg wrote {n} files")
+        print(f"cli export-seg, fp32, Swin-L, batch 12: {files} files in "
+              f"{forwards} forwards, {export_s:.2f} s; the rerun (loading "
+              f"the segmenter, writing nothing) {again_s:.2f} s; "
+              f"{(export_s - again_s) / files:.4f} s a frame and orientation "
+              f"beyond the load ({card_line()})")
+        trainer = counted(
+            "cli_cached", ["train", "--data_path", paths["data_path"],
+                           "--no_eval", "--seg_pkl", "seg.pkl", "--set",
+                           "split='smoke_24'", "temporal=True",
+                           "ins_threshold=0.0", "seg_cache_root='segcache'",
+                           "num_epochs=1", "log_every=1", "ckpt_dir='ckc'"],
+            {"plane_sweep_diffs": steps, "swin_attn_fused": 48 * steps,
+             "swin_mlp_fused": 48 * steps, "ms_deform_attn_core": 12 * steps})
+        check(trainer.step == steps, f"cached temporal train took "
+              f"{trainer.step} steps, not {steps}")
+        check(all(m["syn_items"] > 0 for _, m in trainer.logger.history),
+              "a cached temporal step had no matched pair")
+        print(f"cli cached temporal train: {_steps_ms(trainer)}; beside the "
+              f"online hint's: {online_ms} ({card_line()})")
         del trainer
 
         # DynamicDepth at its benchmark configuration, then eval with masks
@@ -1567,13 +1783,20 @@ def main(argv=None) -> int:
 
     every = [plane_sweep_diffs, plane_sweep_diffs_occ, swin_attn_fused,
              swin_mlp_fused, window_attention, ms_deform_attn_core]
-    by_path = {"no_hint": main_path_phase(args.steps, args.profile),
-               "temporal": temporal_path_phase(args.steps, args.profile, False),
-               "fast": temporal_path_phase(args.steps, args.profile, True),
-               "dynamic": dynamic_path_phase(args.steps, args.profile, False,
-                                             every),
-               "dynamic_fast": dynamic_path_phase(args.steps, args.profile,
-                                                  True, every)}
+    by_path = {"no_hint": main_path_phase(args.steps, args.profile)}
+    by_path.update(options_phase(every))
+    # the fp32 segmenter goes at once: a live one would add its 0.8 GiB to
+    # every later path's peak memory
+    by_path["temporal"] = temporal_path_phase(args.steps, args.profile,
+                                              False)[0]
+    by_path["fast"], seg_fn = temporal_path_phase(args.steps, args.profile,
+                                                  True)
+    by_path.update(cached_hint_phase(seg_fn, every))
+    del seg_fn
+    by_path["dynamic"] = dynamic_path_phase(args.steps, args.profile, False,
+                                            every)
+    by_path["dynamic_fast"] = dynamic_path_phase(args.steps, args.profile,
+                                                 True, every)
     by_path.update(cli_phase(args.profile, every))
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)

@@ -3,13 +3,15 @@
     python -m mal_tpu_torch.cli train --preset kitti --data_path ...
     python -m mal_tpu_torch.cli eval --ckpt ... --data_path ... --gt gt_depths.npz
     python -m mal_tpu_torch.cli export-pth --ckpt ... --out ...
+    python -m mal_tpu_torch.cli export-seg --seg_pkl ... --out ... --data_path ...
 
 The flags are `mal_tpu.cli`'s, plus `--device` (default `cuda`, which raises
 when no card is present; `--device cpu` runs the plain PyTorch path). Any
 Config field can be overridden with `--set key=value`. Split files resolve
 against the working directory (`splits/<split>/train_files.txt`, ...).
 `main` returns what the command made: the `Trainer` of `train`, the metrics
-of `eval`, the written paths of `export-pth`.
+of `eval`, the written paths of `export-pth`, the number of files
+`export-seg` wrote.
 """
 
 from __future__ import annotations
@@ -40,24 +42,30 @@ def _img_ext(cfg: Config) -> str:
     return ".png" if cfg.png else ".jpg"
 
 
-def build_train_loader(cfg: Config):
-    """The training loader: the threaded native decode with background
-    prefetch (`mal_tpu/cli.py:34-64`) when `cfg.native_loader` is on and
-    `libmalio.so` builds, else the PIL loader. Prints which one runs, and
-    why the native one does not."""
+def _train_dataset(cfg: Config, seg_cache_root: str | None):
+    """The training split's dataset (`splits/<split>/train_files.txt`)."""
     from mal_tpu_torch.data.cityscapes import CityscapesPreprocessedDataset
     from mal_tpu_torch.data.kitti import KITTIRAWDataset
-    from mal_tpu_torch.data.mono_dataset import DataLoader
     from mal_tpu_torch.utils.misc import readlines
 
     datasets = {"kitti": KITTIRAWDataset,
                 "cityscapes_preprocessed": CityscapesPreprocessedDataset}
     train_files = readlines(os.path.join("splits", cfg.split,
                                          "train_files.txt"))
-    ds = datasets[cfg.dataset](cfg.data_path, train_files, cfg.height,
-                               cfg.width, cfg.frames_to_load, is_train=True,
-                               img_ext=_img_ext(cfg),
-                               seg_cache_root=cfg.seg_cache_root)
+    return datasets[cfg.dataset](cfg.data_path, train_files, cfg.height,
+                                 cfg.width, cfg.frames_to_load, is_train=True,
+                                 img_ext=_img_ext(cfg),
+                                 seg_cache_root=seg_cache_root)
+
+
+def build_train_loader(cfg: Config):
+    """The training loader: the threaded native decode with background
+    prefetch (`mal_tpu/cli.py:34-64`) when `cfg.native_loader` is on and
+    `libmalio.so` builds, else the PIL loader. Prints which one runs, and
+    why the native one does not."""
+    from mal_tpu_torch.data.mono_dataset import DataLoader
+
+    ds = _train_dataset(cfg, cfg.seg_cache_root)
     if cfg.native_loader:
         from mal_tpu_torch.data import native
         from mal_tpu_torch.data.fast_loader import NativePrefetchLoader
@@ -326,9 +334,30 @@ def cmd_finetune_seg(args):
 
 
 def cmd_export_seg(args):
-    raise NotImplementedError(
-        "export-seg (the temporal hint's instance cache, segment/cache.py): "
-        "not yet ported (ROADMAP M3)")
+    """The temporal hint's current-frame instances for the training split
+    (`segment/cache.py`): one frozen-segmenter forward per frame and
+    orientation, written once and read every epoch by `train --set
+    seg_cache_root=...`. Returns the number of files written."""
+    from mal_tpu_torch.convert.mask2former import (load_mask2former_state,
+                                                   load_pkl)
+    from mal_tpu_torch.segment.cache import export_split_instances
+    from mal_tpu_torch.segment.mask2former import (Mask2Former, make_seg_fn,
+                                                   resolve_fused_swin)
+
+    cfg = PRESETS[args.preset].replace(data_path=args.data_path)
+    # the preset's precision, not train's fast-mode default (as mal_tpu)
+    cfg = _apply_overrides(cfg, args.set or [])
+    ds = _train_dataset(cfg, None)
+    model = Mask2Former(swin_size=args.size, device=args.device,
+                        bf16_backbone=cfg.compute_dtype == "bfloat16",
+                        fused_swin=resolve_fused_swin(cfg, args.device),
+                        init_weights=False)
+    load_mask2former_state(model, load_pkl(args.seg_pkl))
+    n = export_split_instances(ds, make_seg_fn(model, cfg.max_instances),
+                               args.out, batch_size=cfg.batch_size,
+                               device=args.device)
+    print(f"export-seg: wrote {n} frame-instance files to {args.out}")
+    return n
 
 
 def main(argv=None):
@@ -428,12 +457,33 @@ def main(argv=None):
 
     pf = sub.add_parser("finetune-seg", help="not yet ported (ROADMAP M7)")
     pf.set_defaults(fn=cmd_finetune_seg)
-    px = sub.add_parser("export-seg", help="not yet ported (ROADMAP M3)")
+    px = sub.add_parser(
+        "export-seg", help="precompute the temporal hint's current-frame "
+        "instances for the training split (train with --set "
+        "seg_cache_root=...)")
+    px.add_argument("--preset", default="kitti", choices=list(PRESETS))
+    px.add_argument("--data_path", required=True)
+    px.add_argument("--seg_pkl", required=True,
+                    help="detectron2 .pkl Mask2Former weights (the same "
+                         "checkpoint the temporal hint trains with)")
+    px.add_argument("--out", required=True,
+                    help="cache directory (pass as --set seg_cache_root=... "
+                         "on train)")
+    px.add_argument("--size", default="large",
+                    choices=("tiny", "small", "base", "large"),
+                    help="Swin size of the .pkl checkpoint")
+    px.add_argument("--set", nargs="*",
+                    help="config overrides key=value; the precision is the "
+                         "preset's, exact fp32 by default (unlike train, "
+                         "whose default is the bf16 fast mode): pass "
+                         "compute_dtype='bfloat16' to export with the fast "
+                         "segmenter")
+    device_flag(px)
     px.set_defaults(fn=cmd_export_seg)
 
-    # the refused commands take mal_tpu's flags without parsing them
+    # the refused command takes mal_tpu's flags without parsing them
     args, extra = p.parse_known_args(argv)
-    if extra and args.fn not in (cmd_finetune_seg, cmd_export_seg):
+    if extra and args.fn is not cmd_finetune_seg:
         p.error(f"unrecognized arguments: {' '.join(extra)}")
     return args.fn(args)
 

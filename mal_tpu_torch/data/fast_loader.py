@@ -31,7 +31,8 @@ from typing import Sequence
 import numpy as np
 
 from mal_tpu_torch.data import native
-from mal_tpu_torch.data.mono_dataset import SEG_CACHE_REFUSAL, MonoDataset
+from mal_tpu_torch.data.mono_dataset import MonoDataset
+from mal_tpu_torch.segment.cache import load_cached_instances
 
 
 def _apply_jitter_batch(imgs: np.ndarray, factors: np.ndarray) -> np.ndarray:
@@ -176,7 +177,13 @@ class NativePrefetchLoader:
                "inv_K": np.linalg.pinv(K).astype(np.float32)}
 
         if getattr(ds, "seg_cache_root", None) is not None:
-            raise NotImplementedError(SEG_CACHE_REFUSAL)
+            # precomputed temporal-hint instances, orientation-matched to
+            # this batch's flip draws (`segment/cache.py`)
+            per = [load_cached_instances(ds.seg_cache_root, folder,
+                                         frame_index, side, bool(flips[bi]))
+                   for bi, (folder, frame_index, side) in enumerate(meta)]
+            for k in per[0]:
+                out[k] = np.stack([p[k] for p in per])
         return out
 
     # ------------------------------------------------------------------

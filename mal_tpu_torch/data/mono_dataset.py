@@ -20,10 +20,7 @@ from typing import Sequence
 import numpy as np
 from PIL import Image, ImageEnhance
 
-# the precomputed instance cache of the temporal hint
-SEG_CACHE_REFUSAL = ("seg_cache_root: the precomputed instance cache waits "
-                     "for the port of segment/cache.py, the part of the host "
-                     "loop still to port (ROADMAP M3)")
+from mal_tpu_torch.segment.cache import load_cached_instances
 
 try:  # Pillow >= 10
     _ANTIALIAS = Image.Resampling.LANCZOS
@@ -88,7 +85,7 @@ class MonoDataset:
         self.img_ext = img_ext
         self._rng = random.Random(seed)
         # precomputed current-frame segmenter instances for the temporal
-        # hint (`mal_tpu/segment/cache.py`), not yet ported
+        # hint (`segment/cache.py`)
         self.seg_cache_root = seg_cache_root
 
     def __len__(self) -> int:
@@ -146,7 +143,8 @@ class MonoDataset:
             "inv_K": np.linalg.pinv(K).astype(np.float32),
         }
         if self.seg_cache_root is not None:
-            raise NotImplementedError(SEG_CACHE_REFUSAL)
+            item.update(load_cached_instances(self.seg_cache_root, folder,
+                                              frame_index, side, do_flip))
         return item
 
 

@@ -25,7 +25,8 @@ import torch
 import torch.nn as nn
 
 from mal_tpu_torch.models.resnet import (Conv2d, ResNetFeatures,
-                                         imagenet_normalize, num_ch_enc)
+                                         imagenet_normalize, num_ch_enc,
+                                         remat)
 from mal_tpu_torch.ops.cost_volume import (compute_depth_bins,
                                            confidence_mask_from_cost,
                                            indices_to_disparity)
@@ -39,13 +40,19 @@ class ResnetEncoder(nn.Module):
     """Plain ResNet pyramid encoder with input normalisation."""
 
     def __init__(self, num_layers: int = 18, num_input_images: int = 1,
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, remat: bool = False):
         super().__init__()
         self.encoder = ResNetFeatures(num_layers, num_input_images, dtype)
         self.num_ch_enc = self.encoder.num_ch_enc
+        self.remat = remat
 
     def forward(self, image: Tensor) -> list[Tensor]:
         """image (B, 3 * num_input_images, H, W)."""
+        if self.remat:
+            return remat(self._features, image, module=self)
+        return self._features(image)
+
+    def _features(self, image: Tensor) -> list[Tensor]:
         return self.encoder(imagenet_normalize(image))
 
 
@@ -60,10 +67,11 @@ class ResnetEncoderMatching(nn.Module):
 
     def __init__(self, num_layers: int = 18, num_depth_bins: int = 96,
                  depth_binning: str = "linear",
-                 dtype: torch.dtype | None = None):
+                 dtype: torch.dtype | None = None, remat: bool = False):
         super().__init__()
         self.num_depth_bins = num_depth_bins
         self.depth_binning = depth_binning
+        self.remat = remat
         trunk = ResNetFeatures(num_layers, 1, dtype)
         self.layer0 = nn.Sequential(trunk.conv1, trunk.bn1, nn.ReLU(inplace=True))
         self.layer1 = nn.Sequential(nn.MaxPool2d(3, 2, 1), trunk.layer1)
@@ -86,7 +94,11 @@ class ResnetEncoderMatching(nn.Module):
                 min_depth_bin: Tensor, max_depth_bin: Tensor):
         B, F = lookup_images.shape[:2]
 
-        feats = self.feature_extraction(current_image)
+        # `remat` recomputes the two trunk halves in the backward, never the
+        # gradient-free lookup pass and cost volume between them: K1
+        # launches once a step with or without it
+        feats = (remat(self.feature_extraction, current_image, module=self)
+                 if self.remat else self.feature_extraction(current_image))
         cur_feats = feats[-1].float()               # (B, 64, h, w) at 1/4
 
         # constant w.r.t. the parameters (`resnet_encoder.py:292-305`); in
@@ -104,11 +116,17 @@ class ResnetEncoderMatching(nn.Module):
             lowest_cost = indices_to_disparity(cost_volume, depth_bins)
             cost_volume = cost_volume * confidence[:, None]
 
-        # fuse [features | cost] back to the trunk width, then stages 3-5
-        # (`resnet_encoder.py:115-119,320-325`)
+        deep = (remat(self._deep_stages, cur_feats, cost_volume, module=self)
+                if self.remat else self._deep_stages(cur_feats, cost_volume))
+        return feats + deep, lowest_cost, confidence
+
+    def _deep_stages(self, cur_feats: Tensor, cost_volume: Tensor
+                     ) -> list[Tensor]:
+        """[features | cost] fused back to the trunk width, then stages 3-5
+        (`resnet_encoder.py:115-119,320-325`)."""
         y = self.reduce_conv(torch.cat([cur_feats, cost_volume], dim=1))
         deep = []
         for layer in (self.layer2, self.layer3, self.layer4):
             y = layer(y)
             deep.append(y)
-        return feats + deep, lowest_cost, confidence
+        return deep

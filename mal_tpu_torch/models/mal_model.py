@@ -76,10 +76,13 @@ class MALModel(nn.Module):
         self.cfg = cfg
         device = resolve_device(device)
         dtype = compute_dtype_of(cfg.compute_dtype)
+        # `cfg.remat` recomputes the trunks' activations in the backward
+        # instead of keeping them (`mal_model.py:43-50`)
         self.encoder = ResnetEncoderMatching(cfg.num_layers, cfg.num_depth_bins,
-                                             cfg.depth_binning, dtype)
+                                             cfg.depth_binning, dtype,
+                                             remat=cfg.remat)
         self.depth = DepthDecoder(self.encoder.num_ch_enc, dtype=dtype)
-        self.mono_encoder = ResnetEncoder(18, dtype=dtype)
+        self.mono_encoder = ResnetEncoder(18, dtype=dtype, remat=cfg.remat)
         self.mono_depth = DepthDecoder(self.mono_encoder.num_ch_enc,
                                        dtype=dtype)
         if cfg.pose_cnn:
@@ -88,7 +91,7 @@ class MALModel(nn.Module):
             self.pose = None
         else:
             self.pose_encoder = ResnetEncoder(18, num_input_images=2,
-                                              dtype=dtype)
+                                              dtype=dtype, remat=cfg.remat)
             self.pose = PoseDecoder(self.pose_encoder.num_ch_enc[-1], 2,
                                     dtype)
         if init_weights:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mal_tpu_torch.ops import precision
 
@@ -41,6 +42,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
+        # set by `remat` while a checkpoint recomputes its region
+        self.recomputing = False
 
     def forward(self, x: Tensor) -> Tensor:
         if not self.training:
@@ -50,6 +53,11 @@ class BatchNorm2d(nn.BatchNorm2d):
         # takes back the n / (n - 1). The op gets a copy, which autograd may
         # save, so the buffer itself can be rewritten afterwards.
         var = self.running_var.clone()
+        if self.recomputing:
+            # the same op on copies: the forward updated the statistics
+            return F.batch_norm(x, self.running_mean.clone(), var,
+                                self.weight, self.bias, True, self.momentum,
+                                self.eps)
         y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
                          True, self.momentum, self.eps)
         n = x.numel() // x.shape[1]
@@ -167,6 +175,38 @@ class ResNetFeatures(nn.Module):
             y = layer(y)
             feats.append(y)                                        # 1/4 .. 1/32
         return feats
+
+
+def remat(fn, *args, module: nn.Module | None = None, **kwargs):
+    """`fn(*args, **kwargs)` under `torch.utils.checkpoint` (non-reentrant)
+    when gradients are on: the backward recomputes the activations of `fn`
+    instead of keeping them (`Config.remat`, `mal_tpu/models/mal_model.py:
+    43-50`, `mal_tpu/train/step.py:160-169`). The recompute runs `module`'s
+    BatchNorms on the same batch statistics without moving their running
+    statistics again, as flax's `nn.remat` applies the mutation once. `fn`
+    draws no random numbers (the step's draws come before the model and
+    the losses), so no RNG state is stashed for the recompute."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    norms = ([m for m in module.modules() if isinstance(m, BatchNorm2d)]
+             if module is not None else [])
+    runs = 0
+
+    def run(*a, **kw):
+        nonlocal runs
+        runs += 1
+        if runs == 1:
+            return fn(*a, **kw)
+        for m in norms:
+            m.recomputing = True
+        try:
+            return fn(*a, **kw)
+        finally:
+            for m in norms:
+                m.recomputing = False
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kwargs)
 
 
 def imagenet_normalize(img: Tensor) -> Tensor:

@@ -1,11 +1,13 @@
 """The MAL training step (PyTorch).
 
-Counterpart of `mal_tpu.train.step` for the non-pareto configurations:
-the teacher and student forward passes, the photometric warps, the MAL
-temporal hint (frames synthesized from the frozen segmenter's instances,
-`temporal` / `main_temporal`), the MAL distillation, the loss balancer, the
-Adam update (with the BN statistics updated by the forward) and the
-adaptive depth-bin EMA (`manydepth/trainer.py:449-644`).
+Counterpart of `mal_tpu.train.step`: the teacher and student forward
+passes, the photometric warps, the MAL temporal hint (frames synthesized
+from the frozen segmenter's instances, `temporal` / `main_temporal`; the
+current frame's from the batch with `seg_cache_root`), the MAL
+distillation, the loss balancer or the pareto (MGDA) weighting, the Adam
+update (with the BN statistics updated by the forward) and the adaptive
+depth-bin EMA (`manydepth/trainer.py:449-644`). `remat` recomputes the
+trunks and the loss assemblies in the backward.
 
 Fast mode (`compute_dtype="bfloat16"`, `mal_tpu.config.TRAIN_FAST_SETTINGS`):
 the depth and pose nets compute in bf16 on fp32 parameters
@@ -20,17 +22,20 @@ test can feed both packages the same numbers.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 
 from mal_tpu_torch import geometry, losses
 from mal_tpu_torch.config import Config
-from mal_tpu_torch.data.mono_dataset import SEG_CACHE_REFUSAL
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.models.mal_model import MALModel, to_nchw
+from mal_tpu_torch.models.resnet import remat
 from mal_tpu_torch.ops.interp import grid_sample
 from mal_tpu_torch.ops.precision import compute_dtype_of
+from mal_tpu_torch.pareto import pareto_weights_2task
+from mal_tpu_torch.segment.cache import instances_from_batch
 from mal_tpu_torch.temporal import image_synthesis
 from mal_tpu_torch.train.lr_schedule import make_schedule
 from mal_tpu_torch.train.state import TrainState, apply_gradients
@@ -38,34 +43,43 @@ from mal_tpu_torch.train.state import TrainState, apply_gradients
 Tensor = torch.Tensor
 
 
+# `mal_tpu` cannot run `loss_pct` either, and the port adds nothing that
+# `mal_tpu` lacks
+LOSS_PCT_REFUSAL = (
+    "loss_pct: mal_tpu cannot run it: its step logs mono_out.mask_pct and "
+    "multi_out.mask_pct (mal_tpu/train/step.py:318-322), which neither "
+    "MonoLossOut nor MultiLossOut has (mal_tpu/losses.py:163-167,229-235), "
+    "so it raises AttributeError there")
+
+
 def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
-    """Raise for the options whose code paths are not ported yet, and for
-    the temporal hint without a segmenter."""
+    """Raise for the options whose code paths are not ported yet, for those
+    `mal_tpu` cannot run, and for the temporal hint without a segmenter."""
     dynamic = cfg.method == "dynamicdepth"
     # each with the ROADMAP item where it waits
     unported = {
         "method 'dualrefine'": ("M5", cfg.method not in ("manydepth",
                                                          "dynamicdepth")),
-        "pareto": ("M4", cfg.distil and cfg.pareto and not dynamic),
-        "remat": ("M4", cfg.remat),
-        "loss_pct": ("M4", cfg.loss_pct),
         "num_depth_shards > 1": ("M6", cfg.num_depth_shards > 1),
         "num_data_shards > 1": ("M6", cfg.num_data_shards > 1),
-        "train_teacher_only without dynamicdepth": (
-            "M4", cfg.train_teacher_only and not dynamic),
     }
     for name, (item, on) in unported.items():
         if on:
             raise NotImplementedError(f"{name}: not yet ported (ROADMAP {item})")
+    if cfg.loss_pct:
+        raise NotImplementedError(LOSS_PCT_REFUSAL)
     compute_dtype_of(cfg.compute_dtype)   # raises on an unknown type
     if dynamic:
         if cfg.online_doj:
             raise NotImplementedError(
                 "online_doj: the online dynamic-object masks wait for the "
                 "port of segment/doj.py (ROADMAP M7)")
+        if cfg.remat:
+            raise NotImplementedError(
+                "remat with method='dynamicdepth': mal_tpu's DynDepthModel "
+                "has no rematerialised form (mal_tpu/dynamic/model.py), so "
+                "the option would change nothing")
         return
-    if cfg.seg_cache_root is not None:
-        raise NotImplementedError(SEG_CACHE_REFUSAL)
     if (cfg.temporal or cfg.main_temporal) and seg_fn is None:
         raise ValueError("cfg.temporal requires a segmentation seg_fn")
     if cfg.learn_ens:
@@ -133,6 +147,13 @@ def make_loss_fn(cfg: Config, model: MALModel,
     train_pose = train_teacher and not cfg.freeze_pose
     reproj_fn = (losses.l1_reprojection_loss if cfg.no_ssim
                  else losses.reprojection_loss)
+    mono_call, multi_call = losses.mono_losses, losses.multi_losses
+    if cfg.remat:
+        # the loss assemblies hold the step's largest full-resolution
+        # intermediates (SSIM maps, automask stacks, distillation
+        # composites): recompute them in the backward
+        mono_call = functools.partial(remat, losses.mono_losses)
+        multi_call = functools.partial(remat, losses.multi_losses)
 
     def temporal_syn(warped: list[Tensor], inst_cur):
         """Synthesized frames from one pair of warped frames
@@ -154,9 +175,14 @@ def make_loss_fn(cfg: Config, model: MALModel,
         outputs = model(batch, min_d, max_d, aug_draw=aug_draw,
                         generator=generator, train=True,
                         train_teacher=train_teacher, train_pose=train_pose)
-        # the current frame is segmented once, for both syntheses
-        inst_cur = (seg_fn(batch["color"]["0"])
-                    if cfg.temporal or cfg.main_temporal else None)
+        # the current frame's instances, shared by both syntheses: from the
+        # precomputed cache when `seg_cache_root` is set
+        # (`segment/cache.py`), else one segmenter forward
+        inst_cur = None
+        if cfg.temporal or cfg.main_temporal:
+            inst_cur = (instances_from_batch(batch)
+                        if cfg.seg_cache_root is not None
+                        else seg_fn(batch["color"]["0"]))
         batch = to_nchw(batch)
         color0 = batch["color"]["0"]
         identity = [batch["color"][str(f)] for f in cfg.frame_ids[1:]]
@@ -185,7 +211,7 @@ def make_loss_fn(cfg: Config, model: MALModel,
         if cfg.temporal:
             mono_syn, has = temporal_syn(warps[0], inst_cur)
             syn_items = syn_items + has.sum()
-        mono_out = losses.mono_losses(
+        mono_out = mono_call(
             noise, mono_disp, color0, warps[0], identity, syn=mono_syn,
             smoothness_weight=cfg.disparity_smoothness, reproj_fn=reproj_fn,
             avg_reprojection=cfg.avg_reprojection,
@@ -207,7 +233,7 @@ def make_loss_fn(cfg: Config, model: MALModel,
         if cfg.main_temporal:
             multi_syn, has = temporal_syn(warps[1], inst_cur)
             syn_items = syn_items + has.sum()
-        multi_out = losses.multi_losses(
+        multi_out = multi_call(
             disp, color0, warps[1], multi_depth, mono_depth_sg, cmask,
             outputs["augmentation_mask"], mono_out.min_reproj.detach(),
             syn=multi_syn,
@@ -221,7 +247,17 @@ def make_loss_fn(cfg: Config, model: MALModel,
         if train_teacher:
             ori_loss = ori_loss + mono_out.loss
         new_balancer = balancer
-        if cfg.distil and cfg.loss_blc:
+        components = None
+        if cfg.distil and cfg.pareto:
+            # --pareto (`loss_utils.py:256-263`): the train step weighs the
+            # (multi, distil) gradients by an MGDA solve; the mono loss
+            # joins unweighted and doubled, as in plain distil below
+            mono_term = (2.0 * mono_out.loss if train_teacher
+                         else torch.zeros((), device=color0.device))
+            components = torch.stack([multi_out.loss, multi_out.distil_loss,
+                                      mono_term])
+            total = multi_out.loss + multi_out.distil_loss + mono_term
+        elif cfg.distil and cfg.loss_blc:
             lam = max(cfg.lambda_for_adjust_start
                       + float(epoch) * cfg.lambda_for_adjust_slope,
                       cfg.lambda_for_adjust_min)
@@ -242,6 +278,8 @@ def make_loss_fn(cfg: Config, model: MALModel,
         aux = {
             "balancer": new_balancer,
             "mono_depth": mono_depth_sg,
+            # (multi, distil, 2 mono) for the pareto step's gradient pulls
+            "components": components,
             "metrics": {
                 "loss": total.detach(),
                 "ori_loss": ori_loss.detach(),
@@ -259,6 +297,35 @@ def make_loss_fn(cfg: Config, model: MALModel,
         return total, aux
 
     return loss_fn
+
+
+def _pareto_backward(cfg: Config, model: torch.nn.Module,
+                     components: Tensor) -> dict:
+    """--pareto (`mal_tpu/train/step.py:346-376`): the gradients of the
+    one forward's (multi, distil, 2 mono) losses, pulled one at a time, set
+    as `.grad` = w0 g_multi + w1 g_distil + g_mono with (w0, w1) the MGDA
+    min-norm weights of the first two (`pareto.py`). The weights' dot
+    products run over every parameter, frozen sub-nets included, as
+    `mal_tpu`'s run over all of `state.params`; a parameter a loss does not
+    reach has a zero gradient. Returns the metrics the pareto step
+    overrides."""
+    params = list(model.parameters())
+    grads = []
+    for i in range(3):
+        g = torch.autograd.grad(components[i], params, retain_graph=i < 2,
+                                allow_unused=True)
+        grads.append([torch.zeros_like(p) if gi is None else gi
+                      for p, gi in zip(params, g)])
+    g_multi, g_distil, g_mono = grads
+    w0, w1 = pareto_weights_2task(g_multi, g_distil, *cfg.pareto_c)
+    for p, a, b, c in zip(params, g_multi, g_distil, g_mono):
+        p.grad = w0 * a + w1 * b + c
+    comps = components.detach()
+    weighted = w0 * comps[0] + w1 * comps[1]
+    # the reference logs w0 x the already re-weighted loss as ori_loss
+    # (`loss_utils.py:261` reads `loss` after line 260 rebinds it)
+    return {"loss": weighted + comps[2], "w_ori": w0, "w_distil": w1,
+            "ori_loss": w0 * weighted}
 
 
 def make_train_step(cfg: Config, device: str | torch.device | None = None,
@@ -298,7 +365,11 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
                              aug_draw=draws.get("matching_aug"),
                              noise=draws.get("automask_noise"),
                              generator=generator)
-        total.backward()
+        pareto_metrics = {}
+        if aux["components"] is not None:
+            pareto_metrics = _pareto_backward(cfg, model, aux["components"])
+        else:
+            total.backward()
         apply_gradients(state.optimizer, schedule(state.step),
                         cfg.grad_clip_norm)
 
@@ -309,6 +380,7 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
         state.balancer = aux["balancer"]
         state.step += 1
         metrics = dict(aux["metrics"])
+        metrics.update(pareto_metrics)
         metrics["min_depth_bin"] = state.bins.min_depth
         metrics["max_depth_bin"] = state.bins.max_depth
         return state, metrics

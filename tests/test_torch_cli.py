@@ -176,7 +176,6 @@ def test_entry_points_need_the_card_unless_asked(tree, monkeypatch):
 
 @pytest.mark.parametrize("argv,match", [
     (["finetune-seg", "--images", "x", "--annotations", "y"], "M7"),
-    (["export-seg", "--data_path", "x", "--seg_pkl", "y", "--out", "z"], "M3"),
     (["train", "--data_path", "kitti", "--coordinator", "h:1"], "M6"),
     (["train", "--data_path", "kitti", "--num_hosts", "4"], "M6"),
     (["train", "--data_path", "kitti", "--host_id", "1"], "M6"),

@@ -186,13 +186,3 @@ def test_native_decode_matches_pil_and_mal_tpu(kitti):
         # tests/test_native.py holds mal_tpu's
         pil = native._load_image_pil(p, W, H, f)
         assert np.abs(got[i] - pil).max() <= 1.5 / 255.0
-
-
-def test_seg_cache_waits_for_its_port(kitti):
-    data, lines = kitti
-    ds = KITTIRAWDataset(data, lines, H, W, [0, -1, 1], is_train=True,
-                         seg_cache_root="cache")
-    with pytest.raises(NotImplementedError, match="M3"):
-        ds[0]
-    with pytest.raises(NotImplementedError, match="M3"):
-        next(iter(NativePrefetchLoader(ds, 2, num_threads=1)))

@@ -266,20 +266,11 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"temporal": True, "seg_cache_root": "cache"}, {"pareto": True},
-    {"method": "dualrefine"}, {"learn_ens": True}, {"remat": True}])
+    {"method": "dualrefine"}, {"learn_ens": True}, {"loss_pct": True}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         make_train_step(torch_cfg(CFG).replace(**option), device="cpu",
                         seg_fn=lambda images: None)
-
-
-@pytest.mark.parametrize("option,waits_for", [
-    ({"seg_cache_root": "cache"}, "host loop")])
-def test_unported_segmenter_options_say_what_they_wait_for(option, waits_for):
-    cfg = torch_cfg(CFG).replace(temporal=True, **option)
-    with pytest.raises(NotImplementedError, match=waits_for):
-        make_train_step(cfg, device="cpu", seg_fn=lambda images: None)
 
 
 @pytest.mark.parametrize("option", [
