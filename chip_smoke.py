@@ -31,7 +31,10 @@ Phases, each of which must pass or the script exits non-zero:
    training step and one `eval_forward` at 64x96; one temporal step at
    64x96 with a Swin-T Mask2Former; the same temporal step in fast mode;
    one DynamicDepth step and one eval forward at 64x96 (the loss, and the
-   share of DOMD pixels that differ);
+   share of DOMD pixels that differ); one DualRefine step (the method's
+   defaults at 64x96, batch 2) and one eval forward (the loss, pose_loss,
+   and the largest difference of the refined disparity `disp_0_1` and of
+   T*);
 5. the path without the temporal hint: `create_train_state`, N training
    steps at `Config()` (192x640, batch 12, 96 depth bins, ResNet-18, fp32)
    on a seeded synthetic batch and one `eval_forward`;
@@ -62,6 +65,16 @@ Phases, each of which must pass or the script exits non-zero:
    cv_min=True, cv_set_1=True, cv_pool_th=0.15)` on a seeded batch with
    `synthetic_doj_masks`, N steps and one eval forward, in fp32 and then
    with `**TRAIN_FAST_SETTINGS`: K6 = steps + evals, K1-K5 = 0.
+8b. the DualRefine path: `Config(method="dualrefine")` (192x640, batch 12,
+   frames 0 / -1 / +1, HRNet-W18, Anderson with 6 evaluations, corr radius
+   8 over 3 levels) on a seeded batch, N steps and one eval forward in fp32
+   and then with `**TRAIN_FAST_SETTINGS` (every loss finite on every step;
+   step ms first and median, frames/s, peak memory, eval ms; with
+   `--profile` the idle share and the top device operations, also in
+   `chiprun_out/profile_dualref_step.txt` and `..._fast_step.txt`), then in
+   fp32 one step with the optimizer of `freeze_teacher_epoch`, which must
+   move `conv2 / context / hidden / update_block` and nothing else. No
+   kernel is on this path: every count must stay 0.
 9. the CLI (`mal_tpu_torch.cli.main` only), in a fake KITTI tree of seeded
    1242x375 JPEGs under `build/chip_smoke_cli` with its own `splits/`:
    `train --preset kitti` at the recipe in fast mode (3 steps, one
@@ -76,9 +89,13 @@ Phases, each of which must pass or the script exits non-zero:
    of batch 12; the export's time a file) and its rerun (0 files, 0
    launches), `train` with the hint from that cache (2 steps; K2 = K3 = 48,
    K5 = 12 a step), DynamicDepth `train` (2 steps, one validation) and its
-   `eval --doj_root` on mask files.
+   `eval --doj_root` on mask files, and DualRefine: `train --set
+   method='dualrefine'` (2 steps, one validation, the end-of-epoch
+   checkpoint), `eval` of it in fp32, `export-pth` to `depth_pose.pth` and
+   `eval` of that directory (abs_rel within 1e-6), every kernel at 0.
 Phases 5 to 9 set every kernel's launch count to 0 just before each path
-(in phase 5b each option, in 7b each step, in phase 9 each command) and
+(in phase 5b each option, in 7b each step, in 8b the frozen step, in phase
+9 each command) and
 read the counts just after; each kernel must have launched exactly as
 often as its path calls it (phase 7: K2 = K3 = 72 per step, K4 = 0), and
 at least once on some path. K5b is
@@ -139,6 +156,12 @@ K23_BF16_ATOL = 2 ** -6
 K23_BF16_MEAN = 3e-4
 # K5b: as K5, three samples instead of twelve
 K5B_ATOL = 1e-4
+# the small DualRefine reference, GPU against CPU: cuDNN's and the CPU's
+# convolutions sum in other orders; the per-pixel automask, the argmin
+# over the trajectory's update norms and the consistency mask's argmin over
+# 96 bins may each pick the other side of a near tie
+DUALREF_LOSS_RTOL = 1e-3
+DUALREF_DISP_ATOL = 1e-3
 # the small temporal reference: GPU against CPU
 SEG_MAX_BIT_FLIPS = 1e-3   # share of segmenter mask bits that may differ
 TEMPORAL_LOSS_RTOL = 1e-3
@@ -1430,6 +1453,171 @@ def temporal_path_phase(steps: int, profile: bool, fast: bool):
     return launches, seg_fn
 
 
+def small_dualref_reference_phase() -> None:
+    """One DualRefine step and one eval forward at 64x96 (batch 2, the
+    method's defaults otherwise): GPU path against the CPU's plain path,
+    from the same weights, batch and automask draws."""
+    import torch
+
+    from mal_tpu_torch.config import Config
+    from mal_tpu_torch.data.synthetic import synthetic_batch
+    from mal_tpu_torch.dualref.step import noise_keys
+    from mal_tpu_torch.models.mal_model import to_nchw
+    from mal_tpu_torch.train.state import create_train_state
+    from mal_tpu_torch.train.step import make_train_step
+
+    cfg = Config(method="dualrefine", height=64, width=96, batch_size=2)
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(3), "cpu")
+    g = torch.Generator().manual_seed(4)
+    noise = {k: torch.randn((2, 1, 64, 96), generator=g)
+             for k in noise_keys(cfg)}
+    res = {}
+    for dev in ("cpu", "cuda"):
+        b = _to(batch, dev)
+        state = create_train_state(cfg, device=dev)
+        step = make_train_step(cfg, device=dev)
+        state, m = step(state, b, 0.0, draws={"automask_noise": {
+            k: v.to(dev) for k, v in noise.items()}})
+        color = to_nchw(b)["color"]
+        with torch.no_grad():
+            out, poses = state.model(color["0"], color["-1"], b["K"],
+                                     invert=True, train=False)
+        res[dev] = (m["loss"].item(), m["pose_loss"].item(),
+                    out["disp_0_1"].cpu(), poses[1].cpu())
+    (l_cpu, p_cpu, d_cpu, t_cpu), (l_gpu, p_gpu, d_gpu, t_gpu) = (
+        res["cpu"], res["cuda"])
+    d_err = (d_cpu - d_gpu).abs().max().item()
+    t_err = (t_cpu - t_gpu).abs().max().item()
+    print(f"small DualRefine reference (64x96, B=2): loss cpu {l_cpu:.6f} "
+          f"gpu {l_gpu:.6f}, pose_loss cpu {p_cpu:.6f} gpu {p_gpu:.6f} "
+          f"(rtol {DUALREF_LOSS_RTOL}); eval disp_0_1 max abs diff "
+          f"{d_err:.3e}, T* {t_err:.3e}")
+    check(abs(l_cpu - l_gpu) <= DUALREF_LOSS_RTOL * abs(l_cpu),
+          "GPU DualRefine loss != CPU loss")
+    check(abs(p_cpu - p_gpu) <= DUALREF_LOSS_RTOL * abs(p_cpu),
+          "GPU DualRefine pose_loss != CPU pose_loss")
+    check(d_err <= DUALREF_DISP_ATOL, "GPU eval disp_0_1 != CPU disp_0_1")
+    check(t_err <= DUALREF_DISP_ATOL, "GPU eval T* != CPU T*")
+
+
+def dualref_path_phase(steps: int, profile: bool, fast: bool,
+                       counters: list) -> dict[str, dict[str, int]]:
+    """DualRefine at `Config(method="dualrefine")` (192x640, batch 12,
+    frames 0 / -1 / +1, HRNet-W18, Anderson with 6 evaluations), in exact
+    fp32 or with `fast` in fast mode: `steps` steps on a seeded synthetic
+    batch and one eval forward, with every kernel's count set to 0 just
+    before and read just after (no kernel is on this path: 0 each). In
+    fp32 one more step then runs with the frozen optimizer of
+    `freeze_teacher_epoch`, which must move the refinement student and
+    nothing else."""
+    import torch
+
+    from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
+    from mal_tpu_torch.data.synthetic import synthetic_batch
+    from mal_tpu_torch.models.mal_model import to_nchw
+    from mal_tpu_torch.train.state import create_train_state, make_optimizer
+    from mal_tpu_torch.train.step import make_train_step
+    from mal_tpu_torch.utils.profiling import idle_share
+
+    cfg = Config(method="dualrefine", **(TRAIN_FAST_SETTINGS if fast else {}))
+    name = "dualref_fast" if fast else "dualref"
+    print(f"DualRefine path{', fast mode' if fast else ''}: Config(method="
+          f"'dualrefine'{', **TRAIN_FAST_SETTINGS' if fast else ''}) "
+          f"{cfg.height}x{cfg.width} batch {cfg.batch_size}, frames "
+          f"{cfg.frame_ids}, HRNet-W{cfg.num_layers}, {cfg.deq_solver} "
+          f"{cfg.deq_iters} evaluations, corr radius {cfg.corr_radius} x "
+          f"{cfg.corr_levels} levels, {cfg.compute_dtype}; {steps} steps + "
+          f"1 eval")
+    t0 = time.perf_counter()
+    state = create_train_state(cfg)
+    step = make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = synthetic_batch(cfg, gen, "cuda")
+    color = to_nchw(batch)["color"]
+    torch.cuda.synchronize()
+    print(f"set-up {time.perf_counter() - t0:.2f} s")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    times = []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, 0.0, gen)
+        m = {k: v.item() for k, v in m.items()}
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        print(f"step {i}: loss {m['loss']!r} pose_loss {m['pose_loss']!r} "
+              f"consistency {m['consistency_loss']!r} ({times[-1]:.2f} ms)")
+        check(_finite(m), f"non-finite metrics at step {i}: {m}")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out, poses = state.model(color["0"], color["-1"], batch["K"],
+                                 invert=True, train=False)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    B, H, W = cfg.batch_size, cfg.height, cfg.width
+    want = {"disp_0_0": (B, 1, H, W), "disp_0_1": (B, 1, H, W),
+            "disp_2_1": (B, 1, H // 4, W // 4),
+            "consistency_mask": (B, 1, H // 4, W // 4)}
+    for k, shape in want.items():
+        check(tuple(out[k].shape) == shape, f"eval {k} shape {out[k].shape}")
+        check(torch.isfinite(out[k].float()).all().item(),
+              f"eval {k} not finite")
+    check(all(torch.isfinite(p).all().item() for p in poses),
+          "eval poses not finite")
+    steady = statistics.median(times[1:]) if steps > 1 else times[0]
+    print(f"eval forward {eval_ms:.2f} ms; step ms (first {times[0]:.2f}, "
+          f"median of the rest {steady:.2f}; {B * 1e3 / steady:.2f} frames/s)"
+          f"; peak memory {peak:.2f} GiB; launches {launches} "
+          f"({card_line()})")
+    for fn in counters:
+        check(launches[fn.__name__] == 0, f"{fn.__name__} launched "
+              f"{launches[fn.__name__]} times on the DualRefine path")
+    by_path = {name: launches}
+
+    if profile:
+        def one_step():
+            nonlocal state
+            state, _ = step(state, batch, 0.0, gen)
+
+        _, _, prof = idle_share(one_step)
+        os.makedirs("chiprun_out", exist_ok=True)
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=40)
+        with open(f"chiprun_out/profile_{name}_step.txt", "w") as f:
+            f.write(table)
+        print(table[:6000])
+
+    if not fast:
+        # the freeze epoch's optimizer: only the refinement student moves
+        student = ("conv2", "context", "hidden", "update_block")
+        state.optimizer = make_optimizer(cfg, state.model,
+                                         freeze_backbone=True)
+        before = {n: p.detach().clone()
+                  for n, p in state.model.named_parameters()}
+        for fn in counters:
+            fn.launches = 0
+        state, m = step(state, batch, 0.0, gen)
+        check(_finite({k: v.item() for k, v in m.items()}),
+              "non-finite metrics in the frozen step")
+        by_path["dualref_frozen"] = {fn.__name__: fn.launches
+                                     for fn in counters}
+        moved = {n.split(".")[0] for n, p in state.model.named_parameters()
+                 if not torch.equal(p, before[n])}
+        print(f"frozen-optimizer step: moved {sorted(moved)}; launches "
+              f"{by_path['dualref_frozen']}")
+        check(moved == set(student), f"the frozen step moved {sorted(moved)}"
+              f", not exactly {student}")
+        check(not any(by_path["dualref_frozen"].values()),
+              "a kernel launched in the frozen DualRefine step")
+    return by_path
+
+
 def dynamic_path_phase(steps: int, profile: bool, fast: bool,
                        counters: list) -> dict[str, int]:
     """DynamicDepth at its benchmark configuration, in exact fp32 or with
@@ -1719,6 +1907,48 @@ def cli_phase(profile: bool, every: list) -> dict[str, dict[str, int]]:
               f"{dyn['doj/abs_rel']!r}, mono_doj/abs_rel "
               f"{dyn['mono_doj/abs_rel']!r}, {dyn['doj_batches']:.0f} images "
               f"with doj pixels")
+
+        # DualRefine at the recipe's width (fast mode by the CLI's
+        # default): 2 steps, one validation, the end-of-epoch checkpoint
+        # only (`save_until` past the run), then eval of it in fp32, its
+        # depth_pose.pth and eval of that; no kernel on any of these
+        steps = CLI_SPLITS["smoke_24"] // 12
+        trainer = counted(
+            "cli_dualref", ["train", *common, "--set", "split='smoke_24'",
+                            "method='dualrefine'", "num_epochs=1",
+                            "validate_every=1", "validate_from=0",
+                            "save_until=100", "log_every=1",
+                            "ckpt_dir='ckr'"], {})
+        check(trainer.step == steps, f"dualrefine train took {trainer.step} "
+              f"steps, not {steps}")
+        losses = [m for _, m in trainer.logger.history if "loss" in m]
+        check(len(losses) == steps and all(_finite(m) for m in losses),
+              f"dualrefine train metrics {losses}")
+        val = {k: v for _, m in trainer.logger.history for k, v in m.items()
+               if k.startswith("val/")}
+        check(len(val) >= 7 and _finite(val), f"dualrefine validation {val}")
+        check(sorted(os.listdir("ckr")) == ["mal_e0", "metrics.jsonl"],
+              f"dualrefine checkpoints {sorted(os.listdir('ckr'))}")
+        print(f"cli dualrefine train: {_steps_ms(trainer)}; validation "
+              f"abs_rel {val['val/abs_rel']!r}")
+        del trainer
+        ckpt = os.path.join("ckr", f"{cfg.model_name}_e0")
+        ours = counted("cli_dualref_eval",
+                       ["eval", *common, "--ckpt", ckpt, "--set",
+                        "compute_dtype='float32'"], {})
+        cli(["export-pth", "--ckpt", ckpt, "--out", "pthr"])
+        check(os.listdir("pthr") == ["depth_pose.pth"],
+              f"dualrefine export wrote {os.listdir('pthr')}")
+        ref = counted("cli_dualref_eval_pth",
+                      ["eval", *common, "--ckpt", "pthr", "--set",
+                       "method='dualrefine'"], {})
+        check(_finite(ours) and _finite(ref), "non-finite dualrefine eval")
+        gap = abs(ours["abs_rel"] - ref["abs_rel"])
+        print(f"dualrefine eval abs_rel: checkpoint {ours['abs_rel']!r}, "
+              f"depth_pose.pth {ref['abs_rel']!r} (difference {gap:.3e}, at "
+              f"most {CLI_ABS_REL_ATOL})")
+        check(gap <= CLI_ABS_REL_ATOL,
+              "dualrefine checkpoint and depth_pose.pth disagree")
     finally:
         os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)
@@ -1773,6 +2003,7 @@ def main(argv=None) -> int:
     small_temporal_reference_phase()
     small_temporal_reference_phase(fast=True)
     small_dynamic_reference_phase()
+    small_dualref_reference_phase()
 
     from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
         plane_sweep_diffs, plane_sweep_diffs_occ)
@@ -1797,6 +2028,8 @@ def main(argv=None) -> int:
                                             every)
     by_path["dynamic_fast"] = dynamic_path_phase(args.steps, args.profile,
                                                  True, every)
+    by_path.update(dualref_path_phase(args.steps, args.profile, False, every))
+    by_path.update(dualref_path_phase(args.steps, args.profile, True, every))
     by_path.update(cli_phase(args.profile, every))
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)

@@ -201,10 +201,25 @@ def _is_pth(path: str) -> bool:
 
 def cmd_export_pth(args):
     """The port's checkpoint as the reference's per-net `.pth` files
-    (`repdepth.py:76-99`, `dynamicdepth/trainer.py:1380-1407`)."""
+    (`repdepth.py:76-99`, `dynamicdepth/trainer.py:1380-1407`), or for
+    DualRefine one `depth_pose.pth` with the four bin statistics and the
+    training size (`dualrefine/evaluate_depth.py:105-149`)."""
     from mal_tpu_torch.utils.checkpoint import export_checkpoint_dir
 
     cfg, state = load_train_state(args.ckpt, args.set or [], args.device)
+    if cfg.method == "dualrefine":
+        from mal_tpu_torch.convert.dualref import \
+            export_dualrefine_checkpoint_dir
+
+        bins = state.bins
+        paths = [export_dualrefine_checkpoint_dir(state.model, args.out, {
+            "min_depth_bin": float(bins.min_depth),
+            "max_depth_bin": float(bins.max_depth),
+            "mean_depth_bin": float(bins.mean_depth),
+            "median_depth_bin": float(bins.median_depth),
+            "height": cfg.height, "width": cfg.width})]
+        print("\n".join(paths))
+        return paths
     paths = export_checkpoint_dir(
         state.model, args.out, float(state.bins.min_depth),
         float(state.bins.max_depth), cfg.height, cfg.width)
@@ -248,13 +263,24 @@ def cmd_eval(args):
                                        doj_root=args.doj_root, batch_size=1)
             return _print(run_dynamic_eval(cfg, args.ckpt, loader, args.gt,
                                            device=args.device))
-        if cfg.method == "dualrefine":
-            raise NotImplementedError(
-                "method='dualrefine': not yet ported (ROADMAP M5)")
-        from mal_tpu_torch.models import MALModel
-
         folder = args.ckpt if os.path.isdir(args.ckpt) else \
             os.path.dirname(args.ckpt)
+        if cfg.method == "dualrefine":
+            # one depth_pose.pth; its training size replaces the preset's
+            # (`dualrefine/evaluate_depth.py:105-125`)
+            from mal_tpu_torch.convert.dualref import \
+                load_dualrefine_checkpoint_dir
+            from mal_tpu_torch.dualref.model import DEQDepthPose
+
+            model = DEQDepthPose(cfg, device=args.device, init_weights=False)
+            extras = load_dualrefine_checkpoint_dir(model, folder)
+            if "height" in extras:
+                cfg = cfg.replace(height=int(extras["height"]),
+                                  width=int(extras["width"]))
+            return _eval_dualref(args, cfg, model, median_scaling,
+                                 scale_factor)
+        from mal_tpu_torch.models import MALModel
+
         model = MALModel(cfg, device=args.device, init_weights=False)
         bins = DepthBinTracker.create()
         load_pretrained(model, folder, bins=bins)
@@ -272,6 +298,9 @@ def cmd_eval(args):
                 cfg, model, iter(loader), load_gt_depths(args.gt),
                 float(bins.min_depth), float(bins.max_depth),
                 device=args.device))
+        if cfg.method == "dualrefine":
+            return _eval_dualref(args, cfg, model, median_scaling,
+                                 scale_factor)
     loader = build_eval_loader(cfg, args.data_path)
     disps = infer_disparities(
         model, iter(loader), cfg, eval_teacher=args.eval_teacher,
@@ -279,6 +308,17 @@ def cmd_eval(args):
         max_depth_bin=float(bins.max_depth),
         zero_cost_volume=args.zero_cost_volume,
         static_camera=args.static_camera, post_process=args.post_process,
+        device=args.device)
+    return _finish_eval(args, cfg, disps, median_scaling, scale_factor)
+
+
+def _eval_dualref(args, cfg, model, median_scaling, scale_factor):
+    """DualRefine's inference over the eval split
+    (`dualrefine/evaluate_depth.py:67-317`), then the shared metrics."""
+    from mal_tpu_torch.dualref.evaluate import infer_disparities_dualref
+
+    disps = infer_disparities_dualref(
+        model, iter(build_eval_loader(cfg, args.data_path)), cfg,
         device=args.device)
     return _finish_eval(args, cfg, disps, median_scaling, scale_factor)
 

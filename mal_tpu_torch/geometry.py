@@ -135,3 +135,56 @@ def scale_intrinsics(K: Tensor, scale: int) -> Tensor:
     factor = torch.tensor([1.0 / (2 ** scale), 1.0 / (2 ** scale), 1.0, 1.0],
                           dtype=K.dtype, device=K.device)
     return K * factor[None, :, None]
+
+
+def depth_to_disp(depth: Tensor, min_depth: float, max_depth: float) -> Tensor:
+    """Inverse of `disp_to_depth`: depth -> the sigmoid disparity."""
+    min_disp = 1.0 / max_depth
+    max_disp = 1.0 / min_depth
+    return (1.0 / depth - min_disp) / (max_disp - min_disp)
+
+
+def project_3d_center(points: Tensor, K: Tensor, T: Tensor, height: int,
+                      width: int, eps: float = 1e-7) -> Tensor:
+    """`project_3d` with DualRefine's pixel-centre normalisation,
+    grid = 2 (pix + 0.5) / W - 1 (`dualrefine/layers.py:216-226`), the
+    convention of `grid_sample(align_corners=False)`. Clipped to [-10, 10]
+    for the reason `project_3d` gives."""
+    P = (K @ T)[:, :3, :]
+    cam_points = P @ points
+    pix = cam_points[:, :2, :] / _safe_denom(cam_points[:, 2:3, :] + eps)
+    pix = pix.reshape(-1, 2, height, width).permute(0, 2, 3, 1)
+    scale = torch.tensor([width, height], dtype=pix.dtype, device=pix.device)
+    grid = 2.0 * (pix + 0.5) / scale - 1.0
+    return grid.clamp(-10.0, 10.0)
+
+
+def skew(v: Tensor) -> Tensor:
+    """(..., 3) -> (..., 3, 3) skew-symmetric matrix."""
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    zeros = torch.zeros_like(x)
+    m = torch.stack([zeros, -z, y, z, zeros, -x, -y, x, zeros], dim=-1)
+    return m.reshape(v.shape[:-1] + (3, 3))
+
+
+def se3_exp(xi: Tensor) -> Tensor:
+    """SE(3) exponential map: twist (..., 6) [v, w] -> (..., 4, 4), with
+    R ~ I + skew(w) and V ~ I below an angle of 1e-6
+    (`dualrefine/layers.py:29-56`)."""
+    v, w = xi[..., :3], xi[..., 3:]
+    theta = torch.linalg.vector_norm(w, dim=-1, keepdim=True).clamp(min=1e-12)
+    W = skew(w / theta)
+    th = theta[..., None]
+    sin_t, cos_t = torch.sin(th), torch.cos(th)
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
+    WW = W @ W
+    R = eye + sin_t * W + (1.0 - cos_t) * WW
+    V = eye + (1.0 - cos_t) / th * W + (th - sin_t) / th * WW
+    small = theta[..., None] < 1e-6
+    R = torch.where(small, eye + skew(w), R)
+    V = torch.where(small, eye, V)
+    t = (V @ v[..., None])[..., 0]
+    top = torch.cat([R, t[..., None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=xi.dtype,
+                          device=xi.device).expand(xi.shape[:-1] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)

@@ -26,38 +26,71 @@ Tensor = torch.Tensor
 class DepthBinTracker:
     """EMA over the per-step batch min / max teacher depth, the functional
     form of the reference's torchmetrics `DepthBins`
-    (`manydepth/trainer.py:75-103`). DualRefine's mean / median EMAs wait
-    for the DualRefine port."""
-    min_depth: Tensor   # ()
-    max_depth: Tensor   # ()
-    updated: Tensor     # () bool
+    (`manydepth/trainer.py:75-103`), with DualRefine's mean and median EMAs
+    (`dualrefine/trainer.py:82-83,357-372`): write-only state in the
+    reference, but its checkpoint carries them."""
+    min_depth: Tensor     # ()
+    max_depth: Tensor     # ()
+    updated: Tensor       # () bool
+    mean_depth: Tensor    # (), starts at 1
+    median_depth: Tensor  # (), starts at 1
 
     @classmethod
     def create(cls, min_depth: float = 0.1, max_depth: float = 10.0,
                device=None) -> "DepthBinTracker":
-        return cls(torch.tensor(min_depth, dtype=torch.float32, device=device),
-                   torch.tensor(max_depth, dtype=torch.float32, device=device),
-                   torch.zeros((), dtype=torch.bool, device=device))
+        def scalar(v: float) -> Tensor:
+            return torch.tensor(v, dtype=torch.float32, device=device)
+
+        return cls(scalar(min_depth), scalar(max_depth),
+                   torch.zeros((), dtype=torch.bool, device=device),
+                   scalar(1.0), scalar(1.0))
 
     def update(self, mono_depth: Tensor, opt_min_depth: float,
-               ema: float = 0.99) -> "DepthBinTracker":
-        """mono_depth: (B, 1, H, W) teacher depth of the batch."""
+               ema: float = 0.99, track_stats: bool = False
+               ) -> "DepthBinTracker":
+        """mono_depth: (B, 1, H, W) teacher depth of the batch.
+
+        `track_stats` adds the mean and median EMAs with the reference's
+        quirks (`dualrefine/trainer.py:357-363`): the mean reduces batch
+        element 0 only, the median is the batch mean of each image's median
+        of its row medians, torch's lower median for even lengths."""
         per_img_min = mono_depth.amin(dim=(1, 2, 3))
         per_img_max = mono_depth.amax(dim=(1, 2, 3))
         mn = (per_img_min.mean() * 0.9).clamp(min=opt_min_depth)
         mx = per_img_max.mean() * 1.1
+        mean_d, median_d = self.mean_depth, self.median_depth
+        if track_stats:
+            d = mono_depth[:, 0]                                  # (B, H, W)
+            row_med = d.median(dim=-1).values                     # (B, H)
+            new_median = row_med.median(dim=-1).values.mean()
+            mean_d = mean_d * ema + d[0].mean() * (1.0 - ema)
+            median_d = median_d * ema + new_median * (1.0 - ema)
         return DepthBinTracker(self.min_depth * ema + mn * (1.0 - ema),
                                self.max_depth * ema + mx * (1.0 - ema),
-                               torch.ones_like(self.updated))
+                               torch.ones_like(self.updated), mean_d, median_d)
+
+    def load(self, extras: dict) -> None:
+        """Set the statistics a checkpoint carries (`min_depth_bin`,
+        `max_depth_bin` and, DualRefine's, `mean_depth_bin` /
+        `median_depth_bin`), in place; marks the tracker updated."""
+        with torch.no_grad():
+            for field in ("min", "max", "mean", "median"):
+                if f"{field}_depth_bin" in extras:
+                    getattr(self, f"{field}_depth").fill_(
+                        float(extras[f"{field}_depth_bin"]))
+            self.updated.fill_(True)
 
 
 @dataclasses.dataclass
 class TrainState:
     step: int
-    model: torch.nn.Module   # MALModel or DynDepthModel
+    model: torch.nn.Module   # MALModel, DynDepthModel or DEQDepthPose
     optimizer: torch.optim.Optimizer
     bins: DepthBinTracker
     balancer: LossBalancerState
+    # DualRefine from `freeze_teacher_epoch`: the optimizer holds the
+    # refinement student only (`make_optimizer(freeze_backbone=True)`)
+    frozen_backbone: bool = False
 
 
 def sanitize_grads(params) -> None:
@@ -92,6 +125,11 @@ def apply_gradients(optimizer: torch.optim.Optimizer, lr: float,
     optimizer.step()
 
 
+# DualRefine's refinement student (`depth_pose.py:84-87`: what
+# freeze_backbone keeps training)
+DUALREF_STUDENT = ("conv2", "context", "hidden", "update_block")
+
+
 def trainable_parameters(cfg: Config, model: torch.nn.Module) -> list:
     """The parameters the optimizer updates: all but the top-level sub-nets
     that a freeze option keeps fixed (`mal_tpu/train/state.py:169-177`;
@@ -108,15 +146,28 @@ def trainable_parameters(cfg: Config, model: torch.nn.Module) -> list:
             if name.split(".")[0] not in frozen]
 
 
-def make_optimizer(cfg: Config, model: torch.nn.Module) -> torch.optim.Adam:
+def make_optimizer(cfg: Config, model: torch.nn.Module,
+                   freeze_backbone: bool = False) -> torch.optim.Adam:
     """Adam (optax's defaults: betas 0.9 / 0.999, eps 1e-8 outside the
     square root) over the trainable parameters. The train step sets the
     learning rate before each update; a frozen sub-net is left out, so it
     neither moves nor advances Adam's moments, as optax's `set_to_zero`
-    partition does."""
+    partition does. `freeze_backbone` (DualRefine from
+    `freeze_teacher_epoch`) trains the refinement student only,
+    `DUALREF_STUDENT` (`mal_tpu/train/state.py:128-134`)."""
     make_schedule(cfg)   # raises for a schedule that does not exist
-    return torch.optim.Adam(trainable_parameters(cfg, model), lr=cfg.init_lr,
-                            betas=(0.9, 0.999), eps=1e-8)
+    return adam(student_parameters(model) if freeze_backbone
+                else trainable_parameters(cfg, model), cfg.init_lr)
+
+
+def adam(params: list, lr: float) -> torch.optim.Adam:
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def student_parameters(model: torch.nn.Module) -> list:
+    """DualRefine's refinement student, what its frozen optimizer trains."""
+    return [p for name, p in model.named_parameters()
+            if name.split(".")[0] in DUALREF_STUDENT]
 
 
 def create_train_state(cfg: Config, device: str | torch.device | None = None,
@@ -125,9 +176,15 @@ def create_train_state(cfg: Config, device: str | torch.device | None = None,
     """A fresh state on `device` (default: the GPU, raising if there is
     none), with weights drawn from `generator` (default: seed 0; not with
     `init_weights=False`, for a state loaded next): a `MALModel`, or a
-    `DynDepthModel` for `method="dynamicdepth"`."""
+    `DynDepthModel` for `method="dynamicdepth"`, a `DEQDepthPose` for
+    `method="dualrefine"`."""
     device = resolve_device(device)
-    if cfg.method == "dynamicdepth":
+    if cfg.method == "dualrefine":
+        from mal_tpu_torch.dualref.model import DEQDepthPose
+
+        model = DEQDepthPose(cfg, device=device, generator=generator,
+                             init_weights=init_weights)
+    elif cfg.method == "dynamicdepth":
         from mal_tpu_torch.dynamic.model import DynDepthModel
 
         model = DynDepthModel(cfg, device=device, generator=generator,

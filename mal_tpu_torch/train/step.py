@@ -55,17 +55,25 @@ LOSS_PCT_REFUSAL = (
 def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
     """Raise for the options whose code paths are not ported yet, for those
     `mal_tpu` cannot run, and for the temporal hint without a segmenter."""
+    if cfg.method not in ("manydepth", "dynamicdepth", "dualrefine"):
+        raise ValueError(f"unknown method {cfg.method!r}")
     dynamic = cfg.method == "dynamicdepth"
     # each with the ROADMAP item where it waits
     unported = {
-        "method 'dualrefine'": ("M5", cfg.method not in ("manydepth",
-                                                         "dynamicdepth")),
         "num_depth_shards > 1": ("M6", cfg.num_depth_shards > 1),
         "num_data_shards > 1": ("M6", cfg.num_data_shards > 1),
     }
     for name, (item, on) in unported.items():
         if on:
             raise NotImplementedError(f"{name}: not yet ported (ROADMAP {item})")
+    if cfg.method == "dualrefine":
+        # mal_tpu's DualRefine step reads none of the ManyDepth options; it
+        # asserts the frame pair (`mal_tpu/dualref/step.py:74-75`)
+        compute_dtype_of(cfg.compute_dtype)
+        if tuple(cfg.frame_ids[:2]) != (0, -1):
+            raise ValueError("DualRefine trains on the (0, -1) frame pair, "
+                             f"got frame_ids={cfg.frame_ids}")
+        return
     if cfg.loss_pct:
         raise NotImplementedError(LOSS_PCT_REFUSAL)
     compute_dtype_of(cfg.compute_dtype)   # raises on an unknown type
@@ -333,7 +341,8 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
     """`train_step(state, batch, epoch=0.0, generator=None, draws=None)
     -> (state, metrics)` on `device` (default: the GPU, raising if there
     is none). `seg_fn` as in `make_loss_fn`. `cfg.method="dynamicdepth"`
-    gives `mal_tpu_torch.dynamic.step.make_dynamic_train_step`'s step.
+    gives `mal_tpu_torch.dynamic.step.make_dynamic_train_step`'s step,
+    `"dualrefine"` `mal_tpu_torch.dualref.step.make_dualref_train_step`'s.
 
     `draws` may hold "matching_aug" (B,) and "automask_noise" (B, 1, H, W)
     to inject the step's random draws. The learning rate of step n is the
@@ -344,8 +353,12 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
         from mal_tpu_torch.dynamic.step import make_dynamic_train_step
 
         return make_dynamic_train_step(cfg, device)
-    device = resolve_device(device)
     check_supported(cfg, seg_fn)
+    if cfg.method == "dualrefine":
+        from mal_tpu_torch.dualref.step import make_dualref_train_step
+
+        return make_dualref_train_step(cfg, device)
+    device = resolve_device(device)
     train_teacher = not cfg.freeze_teacher_and_pose
     schedule = make_schedule(cfg)
 

@@ -5,7 +5,10 @@ The loop around the training step, replacing `manydepth/trainer.py:
 119-1730`: the model on one device, metric logging, the step-250 early
 validation and the periodic validation (`trainer.py:498-537`), per-epoch
 loss-balancer resets, checkpoints and resume. The numerical work lives in
-`mal_tpu_torch.train.step` and `mal_tpu_torch.dynamic.step`.
+`mal_tpu_torch.train.step`, `mal_tpu_torch.dynamic.step` and
+`mal_tpu_torch.dualref.step`. DualRefine also keeps its own cadence: from
+`freeze_teacher_epoch` only the refinement student trains, and a
+checkpoint is saved at the end of every `save_frequency`-th epoch.
 
 The loader yields numpy batches; each goes to the card through pinned
 memory with `non_blocking=True`. The trainer records, per step, how long it
@@ -27,7 +30,7 @@ import torch
 from mal_tpu_torch.config import Config
 from mal_tpu_torch.device import batch_to_device, resolve_device
 from mal_tpu_torch.eval.evaluate import evaluate_depth_maps, infer_disparities
-from mal_tpu_torch.train.state import create_train_state
+from mal_tpu_torch.train.state import create_train_state, make_optimizer
 from mal_tpu_torch.train.step import make_train_step
 from mal_tpu_torch.utils.checkpoint import save_checkpoint
 from mal_tpu_torch.utils.misc import sec_to_hm_str
@@ -148,17 +151,32 @@ class Trainer:
         before training (`--load_pretrained` / `--mono_weights_folder`,
         `repdepth.py:76-99`, `manydepth/trainer.py:1638-1655`), with the
         depth bins of `encoder.pth` when `bins`. Adam's moments start
-        fresh, as in the reference's `load_manydepth`."""
+        fresh, as in the reference's `load_manydepth`. DualRefine loads its
+        whole model from `depth_pose.pth`, with the four bin statistics."""
         from mal_tpu_torch.utils.checkpoint import load_pretrained
 
-        loaded = load_pretrained(self.model, folder, models_to_load,
-                                 bins=self.state.bins if bins else None)
+        if self.cfg.method == "dualrefine":
+            from mal_tpu_torch.convert.dualref import \
+                load_dualrefine_checkpoint_dir
+
+            extras = load_dualrefine_checkpoint_dir(self.model, folder)
+            if bins:
+                self.state.bins.load(extras)
+            loaded = ["depth_pose"]
+        else:
+            loaded = load_pretrained(self.model, folder, models_to_load,
+                                     bins=self.state.bins if bins else None)
         print(f"loaded pretrained nets {loaded} from {folder}", flush=True)
         return loaded
 
     def load_imagenet(self, path: str) -> None:
         """`--weights_init pretrained`: the ResNet-18 trunks from a
         torchvision ImageNet state dict (`.pth`), `trainer.py:250-301`."""
+        if self.cfg.method == "dualrefine":
+            raise NotImplementedError(
+                "dualrefine uses HRNet encoders, which the torchvision "
+                "resnet layout does not fit; initialise from a depth_pose.pth "
+                "with --load_pretrained")
         if self.cfg.num_layers != 18:
             raise NotImplementedError(
                 "single-file ImageNet init assumes resnet18 everywhere (the "
@@ -188,13 +206,22 @@ class Trainer:
     # ------------------------------------------------------------------
     def train(self, start_epoch: int = 0):
         """`start_epoch` > 0 resumes mid-run: epoch-keyed schedules (the
-        loss_blc lambda annealing) see the true epoch index."""
+        loss_blc lambda annealing, DualRefine's freeze epoch and
+        save_frequency) see the true epoch index."""
         for epoch in range(start_epoch, self.cfg.num_epochs):
             self.run_epoch(epoch)
         return self.state
 
     def run_epoch(self, epoch: int):
         cfg = self.cfg
+        dualrefine = cfg.method == "dualrefine"
+        if dualrefine and epoch == cfg.freeze_teacher_epoch and epoch > 0:
+            # DualRefine's freeze (`dualrefine/trainer.py:207-213`): only
+            # the refinement student trains on, with a new optimizer (Adam's
+            # moments restart), as `mal_tpu/train/trainer.py:333-344`
+            self.state.optimizer = make_optimizer(cfg, self.model,
+                                                  freeze_backbone=True)
+            self.state.frozen_backbone = True
         # the loss balancer's cumulative window resets per epoch
         # (`loss_utils.py:294,321`)
         self.state.balancer = self.state.balancer.reset_epoch()
@@ -235,6 +262,12 @@ class Trainer:
                         self.state, cfg)
             self.step += 1
 
+        # DualRefine's end-of-epoch save (`dualrefine/trainer.py:219`; the
+        # other methods save at validation)
+        if (dualrefine and cfg.ckpt_dir and cfg.save_frequency > 0
+                and (epoch + 1) % cfg.save_frequency == 0):
+            save_checkpoint(os.path.join(
+                cfg.ckpt_dir, f"{cfg.model_name}_e{epoch}"), self.state, cfg)
         print(f"epoch {epoch} done at step {self.step} "
               f"({sec_to_hm_str(time.time() - self.start_time)})", flush=True)
 
@@ -252,9 +285,16 @@ class Trainer:
             return evaluate_dynamic(self.cfg, self.model, self.val_batches,
                                     self.gt_depths, min_bin, max_bin,
                                     device=self.device)
-        disps = infer_disparities(self.model, self.val_batches, self.cfg,
-                                  min_depth_bin=min_bin,
-                                  max_depth_bin=max_bin, device=self.device)
+        if self.cfg.method == "dualrefine":
+            from mal_tpu_torch.dualref.evaluate import infer_disparities_dualref
+
+            disps = infer_disparities_dualref(self.model, self.val_batches,
+                                              self.cfg, device=self.device)
+        else:
+            disps = infer_disparities(self.model, self.val_batches, self.cfg,
+                                      min_depth_bin=min_bin,
+                                      max_depth_bin=max_bin,
+                                      device=self.device)
         if self.cfg.log_disp_images > 0 and self.cfg.ckpt_dir:
             from mal_tpu_torch.utils.vis import dump_disp_images
 

@@ -28,7 +28,8 @@ import torch
 from mal_tpu_torch.config import Config
 from mal_tpu_torch.losses import LossBalancerState
 from mal_tpu_torch.models.encoders import ResnetEncoder
-from mal_tpu_torch.train.state import DepthBinTracker, TrainState
+from mal_tpu_torch.train.state import (DepthBinTracker, TrainState, adam,
+                                       student_parameters)
 
 STATE_FILE = "state.pt"
 NETS = ("encoder", "depth", "mono_encoder", "mono_depth", "pose_encoder",
@@ -58,6 +59,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, cfg: Config,
                 "model": state.model.state_dict(),
                 "optimizer": state.optimizer.state_dict(),
                 "bins": dataclasses.asdict(state.bins),
+                "frozen_backbone": state.frozen_backbone,
                 "balancer": dataclasses.asdict(state.balancer)},
                os.path.join(path, STATE_FILE))
     with open(os.path.join(ckpt_dir, "config.json"), "w") as f:
@@ -79,8 +81,15 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     saved = torch.load(os.path.join(path, STATE_FILE), map_location=device,
                        weights_only=True)
     state.model.load_state_dict(saved["model"])
+    if saved.get("frozen_backbone", False):
+        # DualRefine past its freeze epoch: the student's optimizer
+        state.optimizer = adam(student_parameters(state.model), 0.0)
+        state.frozen_backbone = True
     state.optimizer.load_state_dict(saved["optimizer"])
-    state.bins = DepthBinTracker(**saved["bins"])
+    # a checkpoint from before the mean / median EMAs keeps their start
+    bins = dataclasses.asdict(DepthBinTracker.create(device=device))
+    bins.update(saved["bins"])
+    state.bins = DepthBinTracker(**bins)
     state.balancer = LossBalancerState(**saved["balancer"])
     state.step = int(saved["step"])
     return state
@@ -167,10 +176,7 @@ def load_pretrained(model: torch.nn.Module, folder: str,
     if os.path.exists(track):
         found.update(torch.load(track, map_location="cpu", weights_only=True))
     if bins is not None and "min_depth_bin" in found:
-        with torch.no_grad():
-            bins.min_depth.fill_(float(found["min_depth_bin"]))
-            bins.max_depth.fill_(float(found["max_depth_bin"]))
-            bins.updated.fill_(True)
+        bins.load(found)
     return list(nets)
 
 

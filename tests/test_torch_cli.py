@@ -179,7 +179,8 @@ def test_entry_points_need_the_card_unless_asked(tree, monkeypatch):
     (["train", "--data_path", "kitti", "--coordinator", "h:1"], "M6"),
     (["train", "--data_path", "kitti", "--num_hosts", "4"], "M6"),
     (["train", "--data_path", "kitti", "--host_id", "1"], "M6"),
-    (["train", "--data_path", "kitti", "--set", "method='dualrefine'"], "M5"),
+    (["train", "--data_path", "kitti", "--set", "method='dualrefine'",
+      "num_depth_shards=2"], "M6"),
     (["train", "--data_path", "kitti", "--set", "num_data_shards=2"], "M6"),
     (["train", "--data_path", "kitti", "--set", "num_depth_shards=2"], "M6"),
     (["train", "--data_path", "kitti", "--set", "method='dynamicdepth'",

@@ -151,18 +151,26 @@ def random_mal_variables(cfg: Config, seed: int = 0):
         lambda r, b: JaxModel(cfg).init(
             {"params": r}, b, jnp.asarray(0.1), jnp.asarray(10.0), r,
             train=True), jax.random.PRNGKey(0), batch)
+    tree = random_tree(shapes, seed)
+    return tree["params"], tree["batch_stats"]
+
+
+def random_tree(shapes, seed: int = 0):
+    """Random numpy leaves on the shapes of a flax variables tree (from
+    `jax.eval_shape` of an `init`): kernels and weight-norm directions `v`
+    normal at 1 / sqrt(fan_in), scales, weight-norm gains and running
+    variances near 1, the rest (biases, means) small."""
     rng = np.random.RandomState(seed)
 
     def draw(path, s):
         name = path[-1].key
         r = rng.randn(*s.shape)
-        if name == "kernel":
+        if name in ("kernel", "v"):
             a = r / np.sqrt(np.prod(s.shape[:-1]))
-        elif name in ("scale", "var"):
+        elif name in ("scale", "var", "g"):
             a = 1.0 + 0.1 * np.abs(r)
         else:                      # bias, mean
             a = 0.1 * r
         return a.astype(np.float32)
 
-    tree = jax.tree_util.tree_map_with_path(draw, shapes)
-    return tree["params"], tree["batch_stats"]
+    return jax.tree_util.tree_map_with_path(draw, shapes)

@@ -266,7 +266,8 @@ def test_entry_points_need_cuda_unless_the_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"method": "dualrefine"}, {"learn_ens": True}, {"loss_pct": True}])
+    {"method": "dualrefine", "num_data_shards": 2}, {"learn_ens": True},
+    {"loss_pct": True}])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError):
         make_train_step(torch_cfg(CFG).replace(**option), device="cpu",
