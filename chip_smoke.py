@@ -75,6 +75,23 @@ Phases, each of which must pass or the script exits non-zero:
    fp32 one step with the optimizer of `freeze_teacher_epoch`, which must
    move `conv2 / context / hidden / update_block` and nothing else. No
    kernel is on this path: every count must stay 0.
+8c. DynamicDepth with the online dynamic-object masks: phase 8's
+   configuration with `online_doj=True, ins_threshold=0.0` and a seeded
+   Swin-L Mask2Former making the masks of the three frames in each step,
+   N steps and one eval forward, in fp32 (K4 = 24 and K5 = 6 a segmenter
+   forward, three forwards a step) and in fast mode (K2 = K3 = 24, K4 = 0,
+   K5 = 6 a forward); K6 = steps + evals; the masks binary and not all
+   empty;
+8d. data parallelism: the one-process step on `Config()`'s whole global
+   batch of 12, run alone, then two gloo ranks on cuda:0 spawned by the
+   script, each with half of the batch (on a machine with 2, 3, 4 or 6
+   cards instead one NCCL rank a card, each with its share), 2 steps from
+   the same state and draws (loss 2e-4 relative, bins 1e-5, every
+   parameter and buffer 5e-5 absolute; the ranks' states equal bit for
+   bit; on each rank K1 once a step and every other kernel 0; the ranks'
+   step ms, each step after a barrier; then one more step with a barrier
+   before each collective: the collectives, the time in them and the
+   wait for the other ranks);
 9. the CLI (`mal_tpu_torch.cli.main` only), in a fake KITTI tree of seeded
    1242x375 JPEGs under `build/chip_smoke_cli` with its own `splits/`:
    `train --preset kitti` at the recipe in fast mode (3 steps, one
@@ -92,7 +109,13 @@ Phases, each of which must pass or the script exits non-zero:
    `eval --doj_root` on mask files, and DualRefine: `train --set
    method='dualrefine'` (2 steps, one validation, the end-of-epoch
    checkpoint), `eval` of it in fp32, `export-pth` to `depth_pose.pth` and
-   `eval` of that directory (abs_rel within 1e-6), every kernel at 0.
+   `eval` of that directory (abs_rel within 1e-6), every kernel at 0;
+   DynamicDepth `train --seg_pkl --set online_doj=True` (2 steps, fast
+   mode: K2 = K3 = 72 and K5 = 18 a step); and `train` at the recipe, 3
+   steps, through a one-process NCCL group (`--coordinator 127.0.0.1:port
+   --num_hosts 1 --host_id 0`; it checks the flags and the group's set-up
+   only: at world 1 no collective runs, which the phase counts) beside the
+   same command without the flags.
 Phases 5 to 9 set every kernel's launch count to 0 just before each path
 (in phase 5b each option, in 7b each step, in 8b the frozen step, in phase
 9 each command) and
@@ -1031,11 +1054,13 @@ def small_temporal_reference_phase(fast: bool = False) -> None:
           "GPU temporal loss != CPU temporal loss")
 
 
-def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
+def run_path(cfg, steps: int, seg_fn, counters, profile: str | None,
+             doj_fn=None):
     """`create_train_state`, `steps` training steps and one `eval_forward`
     at `cfg` on a seeded synthetic batch, with every kernel's launch count
-    set to 0 just before and read just after. Returns (launches by kernel
-    name, the state, the batch)."""
+    set to 0 just before and read just after (`doj_fn`: DynamicDepth's
+    online masks). Returns (launches by kernel name, the state, the
+    batch)."""
     import torch
 
     from mal_tpu_torch.data.synthetic import (synthetic_batch,
@@ -1047,7 +1072,7 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None):
     dynamic = cfg.method == "dynamicdepth"
     t0 = time.perf_counter()
     state = create_train_state(cfg)
-    step = make_train_step(cfg, seg_fn=seg_fn)
+    step = make_train_step(cfg, seg_fn=seg_fn, doj_fn=doj_fn)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = synthetic_batch(cfg, gen, "cuda")
     if dynamic:
@@ -1642,6 +1667,291 @@ def dynamic_path_phase(steps: int, profile: bool, fast: bool,
     return launches
 
 
+DOJ_FAVOURED_CLASS = 2     # COCO's car, one of `DYNAMIC_COCO_CLASSES`
+
+
+def online_doj_phase(steps: int, profile: bool, fast: bool,
+                     counters: list) -> dict[str, int]:
+    """DynamicDepth at its benchmark configuration with the online
+    dynamic-object masks (`online_doj`): the frozen Swin-L Mask2Former
+    (seeded random weights, `ins_threshold=0.0`, as random weights keep no
+    instance at 0.9, and the class bias of `car` raised) makes `doj_mask`
+    and `doj_mask-1` / `+1` in the step, one forward per frame of
+    `frame_ids`. In fp32 each forward launches K4
+    24 times (its 24 Swin blocks) and K5 6 times (its 6 deformable encoder
+    layers); in fast mode K2 and K3 24 times each and K5 6 times; K6 once a
+    step and once an eval."""
+    import torch
+
+    from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
+    from mal_tpu_torch.ops.cuda.cost_volume_kernel import plane_sweep_diffs_occ
+    from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
+    from mal_tpu_torch.ops.cuda.swin_block import (swin_attn_fused,
+                                                   swin_mlp_fused)
+    from mal_tpu_torch.ops.cuda.window_attention import window_attention
+    from mal_tpu_torch.segment.doj import make_doj_fn
+    from mal_tpu_torch.segment.mask2former import (Mask2Former,
+                                                   resolve_fused_swin)
+
+    cfg = Config(**DYNAMIC, online_doj=True, ins_threshold=0.0,
+                 **(TRAIN_FAST_SETTINGS if fast else {}))
+    fused = resolve_fused_swin(cfg)
+    check(fused == fast, f"resolve_fused_swin gave {fused} with fast={fast}")
+    seg = Mask2Former(generator=torch.Generator().manual_seed(1),
+                      bf16_backbone=fast, fused_swin=fused)
+    # random weights give every query one class (here not a movable one,
+    # so every mask would be empty): the class head's bias favours `car`
+    with torch.no_grad():
+        seg.sem_seg_head.predictor.class_embed.bias[DOJ_FAVOURED_CLASS] += 5.0
+    doj_fn = make_doj_fn(seg, cfg.max_instances, cfg.ins_threshold)
+    print(f"online doj path{', fast mode' if fast else ''}: Config("
+          f"method='dynamicdepth', cv_min, cv_set_1, cv_pool_th=0.15, "
+          f"online_doj=True, ins_threshold=0.0"
+          f"{', **TRAIN_FAST_SETTINGS' if fast else ''}) {cfg.height}x"
+          f"{cfg.width} batch {cfg.batch_size}, {cfg.compute_dtype}; "
+          f"Mask2Former Swin-L (bf16_backbone={fast}, fused_swin={fused}); "
+          f"{steps} steps + 1 eval ({card_line()})")
+    name = "profile_doj_fast_step" if fast else "profile_doj_step"
+    launches, _, batch = run_path(cfg, steps, None, counters,
+                                  name if profile else None, doj_fn=doj_fn)
+    forwards = len(cfg.frame_ids) * steps
+    want = {"plane_sweep_diffs_occ": steps + 1,
+            "swin_attn_fused": 24 * forwards if fused else 0,
+            "swin_mlp_fused": 24 * forwards if fused else 0,
+            "window_attention": 0 if fused else 24 * forwards,
+            "ms_deform_attn_core": 6 * forwards}
+    for fn in counters:
+        n = want.get(fn.__name__, 0)
+        check(launches[fn.__name__] == n, f"{fn.__name__} launched "
+              f"{launches[fn.__name__]} times on this path, not {n}")
+    masks = {f: doj_fn(batch["color"][f]) for f in ("0", "-1", "1")}
+    share = {f: m.mean().item() for f, m in masks.items()}
+    print(f"online doj masks, share of pixels per frame {share}; images "
+          f"with a non-empty mask of frame 0: "
+          f"{int((masks['0'].sum(dim=(1, 2)) > 0).sum())} of "
+          f"{cfg.batch_size}")
+    check(all(((m == 0) | (m == 1)).all().item() for m in masks.values()),
+          "online doj masks are not binary")
+    check(any(m.sum().item() > 0 for m in masks.values()),
+          "the online doj masks are empty on every image")
+    return launches
+
+
+# data parallelism: two processes on the one card with gloo (NCCL takes
+# one rank a GPU), the global batch of Config() split 6 / 6, or on a
+# machine with more cards one NCCL process per card, against the
+# one-process step on the whole batch from the same state and draws; the
+# bounds of mal_tpu's mesh test (tests/test_parallel.py:50-74)
+DP_STEPS = 2
+DP_LOSS_RTOL = 2e-4
+DP_BINS_RTOL = 1e-5
+DP_PARAM_ATOL = 5e-5
+
+
+def _counted_wrappers() -> list:
+    """Every kernel wrapper that counts its launches, K1-K5b."""
+    from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
+        plane_sweep_diffs, plane_sweep_diffs_occ)
+    from mal_tpu_torch.ops.cuda.deform_sample import (deform_sample_fused,
+                                                      ms_deform_attn_core)
+    from mal_tpu_torch.ops.cuda.swin_block import (swin_attn_fused,
+                                                   swin_mlp_fused)
+    from mal_tpu_torch.ops.cuda.window_attention import window_attention
+
+    return [plane_sweep_diffs, plane_sweep_diffs_occ, swin_attn_fused,
+            swin_mlp_fused, window_attention, ms_deform_attn_core,
+            deform_sample_fused]
+
+
+def _split_collectives(step, state, batch, draws) -> dict:
+    """One more step of a rank, each all-reduce and broadcast split into
+    the wait for the other ranks (a barrier just before it) and the
+    collective itself, both on the host clock with the card synchronized;
+    the split step's own time includes the barriers and is not a step
+    time."""
+    import torch
+    import torch.distributed as dist
+
+    plain = {"all_reduce": dist.all_reduce, "broadcast": dist.broadcast}
+    calls, wait_s, run_s = [0], [0.0], [0.0]
+
+    def split(op):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dist.barrier()
+            t1 = time.perf_counter()
+            out = op(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls[0] += 1
+            wait_s[0] += t1 - t0
+            run_s[0] += time.perf_counter() - t1
+            return out
+        return run
+
+    for name, op in plain.items():
+        setattr(dist, name, split(op))
+    try:
+        step(state, batch, 0.0, draws=draws)
+        torch.cuda.synchronize()
+    finally:
+        for name, op in plain.items():
+            setattr(dist, name, op)
+    return {"collectives": calls[0], "collective_wait_ms": wait_s[0] * 1e3,
+            "collective_ms": run_s[0] * 1e3}
+
+
+def _dp_run(rank: int | None = None, world: int = 1) -> dict:
+    """`DP_STEPS` steps at `Config()` on the global batch (rank None) or on
+    rank `rank`'s share of it in a group of `world`: the losses, bins and
+    step ms of each step (a rank's steps start together, after a barrier),
+    every kernel's launches a step, the parameters and buffers after the
+    steps and, for a rank, one more step's collectives
+    (`_split_collectives`)."""
+    import torch
+    import torch.distributed as dist
+
+    from mal_tpu_torch.config import Config
+    from mal_tpu_torch.data.synthetic import synthetic_batch
+    from mal_tpu_torch.parallel import mesh
+    from mal_tpu_torch.train.state import create_train_state
+    from mal_tpu_torch.train.step import make_train_step
+
+    every = _counted_wrappers()
+    cfg = Config()
+    batch = synthetic_batch(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    draws = [_draws(cfg, 5 + i) for i in range(DP_STEPS)]
+    local = cfg
+    if rank is not None:
+        local = cfg.replace(batch_size=cfg.batch_size // world)
+        batch = mesh.shard_batch(batch, rank, world)
+        draws = [mesh.shard_batch(d, rank, world) for d in draws]
+    # rank 1 starts from other weights: the broadcast gives it rank 0's
+    state = create_train_state(local, generator=torch.Generator().manual_seed(
+        1 if rank == 1 else 0))
+    mesh.broadcast_state(state)
+    step = make_train_step(local)
+    out = {"loss": [], "bins": [], "ms": [], "launches": []}
+    for i in range(DP_STEPS):
+        for fn in every:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        if rank is not None:
+            dist.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, batch, 0.0, draws=draws[i])
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append({fn.__name__: fn.launches for fn in every})
+        out["loss"].append(m["loss"].item())
+        out["bins"].append((state.bins.min_depth.item(),
+                            state.bins.max_depth.item()))
+    out["state"] = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    if rank is not None:
+        out.update(_split_collectives(step, state, batch, draws[-1]))
+    return out
+
+
+def dp_rank_main(rank: int, out_dir: str) -> int:
+    """A rank of `data_parallel_phase` (its group as `setup.json` in
+    `out_dir` says): `_dp_run`, its results written to `out_dir`."""
+    import torch
+
+    from mal_tpu_torch.parallel import distributed
+
+    with open(os.path.join(out_dir, "setup.json")) as f:
+        setup = json.load(f)
+    device = torch.device("cuda", rank if setup["nccl"] else 0)
+    distributed.initialize(f"file://{os.path.join(out_dir, 'rendezvous')}",
+                           setup["world"], rank,
+                           backend="nccl" if setup["nccl"] else "gloo",
+                           device=device)
+    try:
+        torch.save(_dp_run(rank, setup["world"]),
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def data_parallel_phase(world: int = 2, nccl: bool = False
+                        ) -> dict[str, dict[str, int]]:
+    """`world` ranks, spawned here, each with its share of `Config()`'s
+    global batch of 12: gloo on cuda:0, or with `nccl` rank r on cuda:r;
+    against the one-process step on the whole batch on cuda:0, run first
+    and alone, `DP_STEPS` steps from the same state and draws: the loss
+    (2e-4 relative), the bins (1e-5), every parameter and buffer after the
+    steps (5e-5 absolute); the ranks' states equal bit for bit; K1 once a
+    step on each rank and every other kernel 0. A rank that fails fails
+    the phase."""
+    import shutil
+
+    import torch
+
+    ref = _dp_run()
+    torch.cuda.empty_cache()
+    out_dir = os.path.abspath(os.path.join("build", "chip_smoke_dp"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with open(os.path.join(out_dir, "setup.json"), "w") as f:
+        json.dump({"world": world, "nccl": nccl}, f)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-rank", str(r), "--dp-dir", out_dir])
+             for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rcs == [0] * world, f"data-parallel ranks exited with {rcs}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+             for r in range(world)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    card = card_line()
+    where = (f"NCCL, cuda:0-{world - 1}" if nccl
+             else f"gloo, all {world} on cuda:0")
+    want = {fn.__name__: int(fn.__name__ == "plane_sweep_diffs")
+            for fn in _counted_wrappers()}
+    print(f"one process, batch 12 (run alone): losses {ref['loss']}, bins "
+          f"{ref['bins']}, step ms "
+          f"{', '.join(f'{t:.2f}' for t in ref['ms'])} ({card})")
+    for r, got in enumerate(ranks):
+        print(f"data parallel, rank {r} of {world} ({where}, batch "
+              f"{12 // world} of 12): losses {got['loss']}, bins "
+              f"{got['bins']}, step ms (after a barrier) "
+              f"{', '.join(f'{t:.2f}' for t in got['ms'])}; one more step: "
+              f"{got['collectives']} collectives, "
+              f"{got['collective_ms']:.2f} ms in them and "
+              f"{got['collective_wait_ms']:.2f} ms waiting for the other "
+              f"ranks before them (barriers; host clock, card synchronized)"
+              f" ({card})")
+        for i, n in enumerate(got["launches"]):
+            check(n == want, f"rank {r} step {i}: launches {n}, not {want}")
+    a = ranks[0]
+    for r, other in enumerate(ranks[1:], start=1):
+        for k, v in a["state"].items():
+            check(torch.equal(v, other["state"][k]),
+                  f"rank {r}'s {k} differs from rank 0's")
+    for i in range(DP_STEPS):
+        check(abs(a["loss"][i] - ref["loss"][i])
+              <= DP_LOSS_RTOL * abs(ref["loss"][i]), f"step {i} loss")
+        for g, w in zip(a["bins"][i], ref["bins"][i]):
+            check(abs(g - w) <= DP_BINS_RTOL * abs(w), f"step {i} bins")
+    gap = max((v.double() - ref["state"][k].double()).abs().max().item()
+              for k, v in a["state"].items() if v.is_floating_point())
+    print(f"data parallel against one process: largest parameter or buffer "
+          f"difference after {DP_STEPS} steps {gap:.3e} (at most "
+          f"{DP_PARAM_ATOL})")
+    check(gap <= DP_PARAM_ATOL, "the data-parallel state left the "
+          "one-process state")
+    return {f"dp{'_nccl' if nccl else ''}_rank{r}":
+            {k: sum(n[k] for n in got["launches"]) for k in want}
+            for r, got in enumerate(ranks)}
+
+
 # the CLI phase's fake KITTI tree: 36 training lines (3 steps at batch 12),
 # 24 test lines (2 validation batches), and two shorter training splits
 # for the 2-step runs (24 lines at batch 12, 28 at DynamicDepth's 14)
@@ -1675,6 +1985,14 @@ def _write_cli_tree() -> dict:
         for suffix in ("", "-1", "+1"):
             np.save(os.path.join("doj", f"{key}_{i}_l{suffix}.npy"), mask)
     return paths
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _finite(d: dict) -> bool:
@@ -1908,6 +2226,64 @@ def cli_phase(profile: bool, every: list) -> dict[str, dict[str, int]]:
               f"{dyn['mono_doj/abs_rel']!r}, {dyn['doj_batches']:.0f} images "
               f"with doj pixels")
 
+        # DynamicDepth with the online masks of the .pkl's segmenter (fast
+        # mode: K2 / K3 / K5 in each of a step's three forwards)
+        forwards = 3 * steps
+        trainer = counted(
+            "cli_online_doj", ["train", "--data_path", paths["data_path"],
+                               "--no_eval", "--seg_pkl", "seg.pkl", "--set",
+                               "split='smoke_28'", *DYN_CLI,
+                               "online_doj=True", "ins_threshold=0.0",
+                               "num_epochs=1", "log_every=1",
+                               "ckpt_dir='ckj'"],
+            {"plane_sweep_diffs_occ": steps,
+             "swin_attn_fused": 24 * forwards,
+             "swin_mlp_fused": 24 * forwards,
+             "ms_deform_attn_core": 6 * forwards})
+        check(trainer.step == steps, f"online doj train took {trainer.step} "
+              f"steps, not {steps}")
+        print(f"cli online doj train: {_steps_ms(trainer)} ({card_line()})")
+        del trainer
+
+        # a one-process NCCL group through the data-parallel flags, beside
+        # the same command without them: the flags and the group's set-up
+        # only, since at world 1 every reduction is the plain operation and
+        # no collective runs (counted here)
+        import torch.distributed as dist
+
+        plain = {"all_reduce": dist.all_reduce, "broadcast": dist.broadcast}
+        collectives = [0]
+
+        def tally(op):
+            def run(*args, **kwargs):
+                collectives[0] += 1
+                return op(*args, **kwargs)
+            return run
+
+        runs = {}
+        for name, flags in (
+                ("cli_nccl_1", ["--coordinator", f"127.0.0.1:{_free_port()}",
+                                "--num_hosts", "1", "--host_id", "0"]),
+                ("cli_no_group", [])):
+            for op_name, op in plain.items():
+                setattr(dist, op_name, tally(op))
+            try:
+                trainer = counted(
+                    name, ["train", "--data_path", paths["data_path"],
+                           "--no_eval", *flags, "--set", "num_epochs=1",
+                           "log_every=1", "ckpt_dir='ckn'"],
+                    {"plane_sweep_diffs": 3})
+            finally:
+                for op_name, op in plain.items():
+                    setattr(dist, op_name, op)
+            check(trainer.step == 3, f"{name} took {trainer.step} steps")
+            runs[name] = _steps_ms(trainer)
+            del trainer
+        check(collectives[0] == 0, f"{collectives[0]} collectives at world 1")
+        print(f"cli train, 3 steps at the recipe: in a 1-process NCCL group "
+              f"(0 collectives) {runs['cli_nccl_1']}; without the flags "
+              f"{runs['cli_no_group']} ({card_line()})")
+
         # DualRefine at the recipe's width (fast mode by the CLI's
         # default): 2 steps, one validation, the end-of-epoch checkpoint
         # only (`save_until` past the run), then eval of it in fp32, its
@@ -1966,6 +2342,10 @@ def main(argv=None) -> int:
                         help="build the kernels, hold each against its plain "
                              "version, print their line and stop: a quick "
                              "check of the kernels alone, with no result line")
+    # a rank of the data-parallel phase, which spawns the script with these
+    parser.add_argument("--dp-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     import torch
@@ -1981,6 +2361,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the mal_tpu_torch package is missing: {e}",
               file=sys.stderr)
         return 1
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, args.dp_dir)
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2028,6 +2410,17 @@ def main(argv=None) -> int:
                                             every)
     by_path["dynamic_fast"] = dynamic_path_phase(args.steps, args.profile,
                                                  True, every)
+    by_path["online_doj"] = online_doj_phase(args.steps, args.profile, False,
+                                             every)
+    by_path["online_doj_fast"] = online_doj_phase(args.steps, args.profile,
+                                                  True, every)
+    # one NCCL process a card where the global batch of 12 divides over
+    # the cards, else two gloo processes on cuda:0
+    cards = torch.cuda.device_count()
+    if cards > 1 and 12 % cards == 0:
+        by_path.update(data_parallel_phase(cards, nccl=True))
+    else:
+        by_path.update(data_parallel_phase())
     by_path.update(dualref_path_phase(args.steps, args.profile, False, every))
     by_path.update(dualref_path_phase(args.steps, args.profile, True, every))
     by_path.update(cli_phase(args.profile, every))

@@ -6,7 +6,10 @@
     python -m mal_tpu_torch.cli export-seg --seg_pkl ... --out ... --data_path ...
 
 The flags are `mal_tpu.cli`'s, plus `--device` (default `cuda`, which raises
-when no card is present; `--device cpu` runs the plain PyTorch path). Any
+when no card is present; `--device cpu` runs the plain PyTorch path).
+`train --coordinator host:port --num_hosts N --host_id i`, run once per
+process, trains data parallel over N processes, one per card (in the
+port the flags count processes, not hosts; `parallel/distributed.py`). Any
 Config field can be overridden with `--set key=value`. Split files resolve
 against the working directory (`splits/<split>/train_files.txt`, ...).
 `main` returns what the command made: the `Trainer` of `train`, the metrics
@@ -58,11 +61,12 @@ def _train_dataset(cfg: Config, seg_cache_root: str | None):
                                  seg_cache_root=seg_cache_root)
 
 
-def build_train_loader(cfg: Config):
+def build_train_loader(cfg: Config, shard: tuple[int, int] = (0, 1)):
     """The training loader: the threaded native decode with background
     prefetch (`mal_tpu/cli.py:34-64`) when `cfg.native_loader` is on and
-    `libmalio.so` builds, else the PIL loader. Prints which one runs, and
-    why the native one does not."""
+    `libmalio.so` builds, else the PIL loader; `shard` (rank, world) is
+    the process's share of the split. Prints which one runs, and why the
+    native one does not."""
     from mal_tpu_torch.data.mono_dataset import DataLoader
 
     ds = _train_dataset(cfg, cfg.seg_cache_root)
@@ -80,11 +84,12 @@ def build_train_loader(cfg: Config):
             print("loader: native (libmalio, threaded decode, prefetch 2)",
                   flush=True)
             return NativePrefetchLoader(ds, cfg.batch_size, shuffle=True,
-                                        drop_last=True,
+                                        drop_last=True, shard=shard,
                                         num_threads=max(cfg.num_workers, 1))
     else:
         print("loader: PIL (native_loader=False)", flush=True)
-    return DataLoader(ds, cfg.batch_size, shuffle=True, drop_last=True)
+    return DataLoader(ds, cfg.batch_size, shuffle=True, drop_last=True,
+                      shard=shard)
 
 
 def build_eval_loader(cfg: Config, data_path: str, frames=(0, -1),
@@ -115,18 +120,37 @@ def cmd_train(args):
     # fast-training defaults (overridable with --set compute_dtype=...)
     cfg = cfg.replace(**TRAIN_FAST_SETTINGS)
     cfg = _apply_overrides(cfg, args.set or [])
-    if args.coordinator or args.num_hosts != 1 or args.host_id != 0:
-        raise NotImplementedError(
-            "--coordinator, --num_hosts and --host_id (multi-host training): "
-            "not yet ported (ROADMAP M6)")
+    from mal_tpu_torch.parallel import distributed
+    from mal_tpu_torch.train.step import check_parallel
 
+    world, rank = args.num_hosts, args.host_id
+    check_parallel(cfg, world)       # before any process joins a group
+    device = args.device
+    if args.coordinator:
+        # one process per card (the reference's `accelerate launch
+        # --multi_gpu`); run this command once per process
+        device = distributed.rank_device(args.device, rank)
+        distributed.initialize(distributed.coordinator_url(args.coordinator),
+                               world, rank, device=device)
+    elif world != 1 or rank != 0:
+        raise ValueError("--num_hosts and --host_id need --coordinator "
+                         "host:port")
+    try:
+        return _train(args, cfg, device, (rank, world))
+    finally:
+        if args.coordinator:
+            distributed.shutdown()
+
+
+def _train(args, cfg: Config, device, shard: tuple[int, int]):
     from mal_tpu_torch.eval.evaluate import load_gt_depths
     from mal_tpu_torch.train.trainer import Trainer
 
     seg_state = None
     if args.seg_pkl:
-        # the frozen Mask2Former of the temporal hint (the reference's
-        # --ins_weight_path COCO checkpoint, `manydepth/options.py:288-295`)
+        # the frozen Mask2Former of the temporal hint and of the online
+        # dynamic-object masks (the reference's --ins_weight_path COCO
+        # checkpoint, `manydepth/options.py:288-295`)
         from mal_tpu_torch.convert.mask2former import load_pkl
         seg_state = load_pkl(args.seg_pkl)
 
@@ -144,9 +168,9 @@ def cmd_train(args):
             if args.gt:
                 gt_depths = load_gt_depths(args.gt)
 
-    trainer = Trainer(cfg, build_train_loader(cfg), val_batches=val_batches,
-                      gt_depths=gt_depths, seg_state=seg_state,
-                      device=args.device,
+    trainer = Trainer(cfg, build_train_loader(cfg, shard),
+                      val_batches=val_batches, gt_depths=gt_depths,
+                      seg_state=seg_state, device=device,
                       init_weights=not args.resume)   # resume overwrites
     if args.imagenet_ckpt:
         # applied first: the checkpoint loads below overwrite it, as in the
@@ -415,7 +439,8 @@ def main(argv=None):
     pt.add_argument("--set", nargs="*", help="config overrides key=value")
     pt.add_argument("--seg_pkl", default=None,
                     help="detectron2 .pkl Mask2Former weights (required for "
-                         "--set temporal=true/main_temporal=true)")
+                         "--set temporal=true/main_temporal=true/"
+                         "online_doj=true)")
     pt.add_argument("--load_pretrained", default=None,
                     help="reference-layout .pth checkpoint dir to initialize "
                          "from (--load_pretrained/--load_weights_folder)")
@@ -440,12 +465,15 @@ def main(argv=None):
                     help="skip building the validation loader (checkpoints "
                          "are written at validation, so none are)")
     pt.add_argument("--coordinator", default=None,
-                    help="host0:port for multi-host training (not ported)")
+                    help="host:port of rank 0 for data-parallel training, "
+                         "one process per card (NCCL; gloo with --device "
+                         "cpu)")
     pt.add_argument("--num_hosts", type=int, default=1,
-                    help="hosts in a multi-host run (not ported: only 1)")
+                    help="processes in a data-parallel run (in the port, "
+                         "processes: one per card)")
     pt.add_argument("--host_id", type=int, default=0,
-                    help="this host's index in a multi-host run (not "
-                         "ported: only 0)")
+                    help="this process's rank in a data-parallel run; it "
+                         "uses cuda:{rank %% device_count}")
     device_flag(pt)
     pt.set_defaults(fn=cmd_train)
 

@@ -191,7 +191,10 @@ class NativePrefetchLoader:
         idxs = np.arange(len(self.ds))
         if self.shuffle:
             np.random.RandomState(self.seed + epoch_idx).shuffle(idxs)
-        idxs = idxs[self.rank::self.world]
+        # every shard the same length, so that data-parallel processes
+        # take the same number of steps (each step all-reduces)
+        even = len(idxs) - len(idxs) % self.world
+        idxs = idxs[:even][self.rank::self.world]
         n_batches = len(idxs) // self.batch_size if self.drop_last else \
             (len(idxs) + self.batch_size - 1) // self.batch_size
 

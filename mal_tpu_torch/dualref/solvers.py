@@ -18,6 +18,8 @@ from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 
+from mal_tpu_torch.parallel import mesh
+
 Tensor = torch.Tensor
 
 
@@ -164,9 +166,10 @@ def anderson_solver_aux(f: Callable, z0: Tensor, aux0: Any, steps: int,
     `steps` counts all f evaluations, as the DEQ library's `threshold`: two
     warm-up evaluations, then steps - 2 mixed ones. `result` is the mixed
     iterate X_k (before f) whose residual |f(X_k) - X_k| is lowest, the
-    residual one global L2 norm over the whole batch, 'abs' or relative to
-    |f(X_k)| ('rel') by `stop_mode`; the warm-up evaluations are not
-    candidates, and with steps <= 2 the result is z0."""
+    residual one global L2 norm over the whole batch (the global batch in
+    a data-parallel step, so that every rank picks the same iterate), 'abs'
+    or relative to |f(X_k)| ('rel') by `stop_mode`; the warm-up evaluations
+    are not candidates, and with steps <= 2 the result is z0."""
     f0, aux = f(z0, aux0)
     auxs = [aux]
     f1, aux = f(f0, aux)
@@ -182,8 +185,8 @@ def anderson_solver_aux(f: Callable, z0: Tensor, aux0: Any, steps: int,
     for k in range(2, n_scan + 2):
         z_new = _anderson_mix(X, F, lam, beta)
         f_new, aux = f(z_new, aux)
-        a = torch.linalg.vector_norm(f_new - z_new)
-        r = a / (1e-5 + torch.linalg.vector_norm(f_new))
+        a = mesh.global_norm(f_new - z_new)
+        r = a / (1e-5 + mesh.global_norm(f_new))
         if len(X) < m:
             X.append(z_new)
             F.append(f_new)

@@ -41,9 +41,10 @@ from mal_tpu_torch.config import Config
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.models.mal_model import to_nchw
 from mal_tpu_torch.ops.interp import grid_sample, resize_bilinear, resize_nearest
+from mal_tpu_torch.parallel import mesh
 from mal_tpu_torch.train.lr_schedule import make_schedule
 from mal_tpu_torch.train.state import TrainState, apply_gradients
-from mal_tpu_torch.train.step import check_supported
+from mal_tpu_torch.train.step import check_supported, data_parallel
 
 Tensor = torch.Tensor
 
@@ -130,9 +131,10 @@ def make_dualref_loss_fn(cfg: Config, model) -> Callable:
             if k > 0:
                 if cmask_full is not None:
                     mask = mask * cmask_full
-                consistency = ((depth - state_depths[(scale, 0)].detach()).abs()
-                               * (1.0 - mask)).mean()
-            reproj = (r * mask).sum() / (mask.sum() + 1e-7)
+                consistency = mesh.batch_mean(
+                    (depth - state_depths[(scale, 0)].detach()).abs()
+                    * (1.0 - mask))
+            reproj = mesh.masked_mean(r, mask)
             if f"color_s{scale}" in b:
                 color_s = b[f"color_s{scale}"].permute(0, 3, 1, 2)
             elif scale == 0:
@@ -177,7 +179,7 @@ def make_dualref_loss_fn(cfg: Config, model) -> Callable:
                 r_p = torch.minimum(r_p, losses.reprojection_loss(
                     warp_p1(state_depths[(0, 0)], 0), color0))
             m_p = losses.automask(r_p, ident_map + draw("pose") * 1e-5)
-            pose_loss = (r_p * m_p).sum() / (m_p.sum() + 1e-7)
+            pose_loss = mesh.masked_mean(r_p, m_p)
             total = total + pose_loss
 
         metrics["pose_loss"] = pose_loss.detach()
@@ -202,6 +204,7 @@ def make_dualref_train_step(cfg: Config,
     device = resolve_device(device)
     schedule = make_schedule(cfg)
 
+    @data_parallel
     def train_step(state: TrainState, batch: dict, epoch: float = 0.0,
                    generator: torch.Generator | None = None,
                    draws: dict | None = None):
@@ -215,13 +218,14 @@ def make_dualref_train_step(cfg: Config,
             batch, noise=(draws or {}).get("automask_noise"),
             generator=generator)
         total.backward()
+        mesh.all_reduce_grads(model.parameters())
         apply_gradients(state.optimizer, schedule(state.step),
                         cfg.grad_clip_norm)
         if cfg.adaptive_bins:
             state.bins = state.bins.update(aux["depth0"], cfg.min_depth,
                                            cfg.depth_bin_ema, track_stats=True)
         state.step += 1
-        metrics = dict(aux["metrics"])
+        metrics = mesh.sum_metrics(aux["metrics"])
         metrics["min_depth_bin"] = state.bins.min_depth
         metrics["max_depth_bin"] = state.bins.max_depth
         return state, metrics

@@ -23,25 +23,41 @@ from mal_tpu_torch.config import Config
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.dynamic.model import DynDepthModel
 from mal_tpu_torch.models.mal_model import to_nchw
+from mal_tpu_torch.parallel import mesh
 from mal_tpu_torch.train.lr_schedule import make_schedule
 from mal_tpu_torch.train.state import TrainState, apply_gradients
-from mal_tpu_torch.train.step import check_supported, warp_frame
+from mal_tpu_torch.train.step import check_supported, data_parallel, warp_frame
 
 Tensor = torch.Tensor
 
 
-def make_dynamic_loss_fn(cfg: Config, model: DynDepthModel) -> Callable:
+def make_dynamic_loss_fn(cfg: Config, model: DynDepthModel,
+                         doj_fn: Callable | None = None) -> Callable:
     """`loss_fn(batch, min_d, max_d, aug_draw=None, noise=None,
     generator=None) -> (total, aux)`: the loss assembly of
     `mal_tpu/dynamic/step.py:39-166`. Running it updates the BN statistics,
     as the forward of a training step does. aug_draw (B,) and noise
-    (B, 1, H, W) as in `mal_tpu_torch.train.step.make_loss_fn`."""
+    (B, 1, H, W) as in `mal_tpu_torch.train.step.make_loss_fn`.
+
+    `doj_fn(images (B, H, W, 3)) -> (B, H, W)` makes the dynamic-object
+    masks online (`cfg.online_doj`, `segment/doj.py:make_doj_fn`) in place
+    of the dataset's precomputed ones: `doj_mask` and `doj_mask{f:+d}` of
+    each adjacent frame, before the model runs
+    (`mal_tpu/dynamic/step.py:25-45`)."""
     check_supported(cfg)
+    if cfg.online_doj and doj_fn is None:
+        raise ValueError("cfg.online_doj requires a doj_fn "
+                         "(segment/doj.py:make_doj_fn)")
     train_teacher = not cfg.freeze_teacher_and_pose
 
     def loss_fn(batch: dict, min_d: Tensor, max_d: Tensor,
                 aug_draw: Tensor | None = None, noise: Tensor | None = None,
                 generator: torch.Generator | None = None):
+        if doj_fn is not None:
+            batch = dict(batch)
+            batch["doj_mask"] = doj_fn(batch["color"]["0"])
+            for f in cfg.frame_ids[1:]:
+                batch[f"doj_mask{f:+d}"] = doj_fn(batch["color"][str(f)])
         outputs = model(batch, min_d, max_d, aug_draw=aug_draw,
                         generator=generator, train=True,
                         train_teacher=train_teacher)
@@ -142,18 +158,20 @@ def make_dynamic_loss_fn(cfg: Config, model: DynDepthModel) -> Callable:
 
 
 def make_dynamic_train_step(cfg: Config,
-                            device: str | torch.device | None = None
-                            ) -> Callable:
+                            device: str | torch.device | None = None,
+                            doj_fn: Callable | None = None) -> Callable:
     """`train_step(state, batch, epoch=0.0, generator=None, draws=None)
     -> (state, metrics)` on `device` (default: the GPU, raising if there is
-    none), with `state.model` a `DynDepthModel` and `draws` as in
-    `mal_tpu_torch.train.step.make_train_step`. The depth bins follow the
-    teacher only while it trains (`mal_tpu/dynamic/step.py:191-195`)."""
+    none), with `state.model` a `DynDepthModel`, `draws` as in
+    `mal_tpu_torch.train.step.make_train_step` and `doj_fn` as in
+    `make_dynamic_loss_fn`. The depth bins follow the teacher only while it
+    trains (`mal_tpu/dynamic/step.py:191-195`)."""
     device = resolve_device(device)
-    check_supported(cfg)
+    make_dynamic_loss_fn(cfg, None, doj_fn)   # raises for what is refused
     train_teacher = not cfg.freeze_teacher_and_pose
     schedule = make_schedule(cfg)
 
+    @data_parallel
     def train_step(state: TrainState, batch: dict, epoch: float = 0.0,
                    generator: torch.Generator | None = None,
                    draws: dict | None = None):
@@ -164,18 +182,19 @@ def make_dynamic_train_step(cfg: Config,
         draws = draws or {}
         model = state.model
         model.zero_grad(set_to_none=True)
-        total, aux = make_dynamic_loss_fn(cfg, model)(
+        total, aux = make_dynamic_loss_fn(cfg, model, doj_fn)(
             batch, state.bins.min_depth, state.bins.max_depth,
             aug_draw=draws.get("matching_aug"),
             noise=draws.get("automask_noise"), generator=generator)
         total.backward()
+        mesh.all_reduce_grads(model.parameters())
         apply_gradients(state.optimizer, schedule(state.step),
                         cfg.grad_clip_norm)
         if cfg.adaptive_bins and train_teacher:
             state.bins = state.bins.update(aux["mono_depth"], cfg.min_depth,
                                            cfg.depth_bin_ema)
         state.step += 1
-        metrics = dict(aux["metrics"])
+        metrics = mesh.sum_metrics(aux["metrics"])
         metrics["min_depth_bin"] = state.bins.min_depth
         metrics["max_depth_bin"] = state.bins.max_depth
         return state, metrics

@@ -13,6 +13,11 @@ Images and loss maps are channels-first here: images (B, 3, H, W), loss and
 depth maps (B, 1, H, W), masks without a channel axis (B, H, W). The
 automask tie-break noise is an argument, so that tests can feed the same
 draws to both packages.
+
+Every reduction over the batch goes through `parallel/mesh.py`: in a
+data-parallel step each rank's loss is its additive share of the global
+batch's (a masked mean over the global mask count, a batch mean over the
+world); in one process these are the plain means.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from mal_tpu_torch.ops.ssim import ssim
+from mal_tpu_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -101,7 +107,8 @@ def feature_metric_loss(feature: Tensor, img: Tensor, feat_dis: float = 0.01,
         return x[..., 1:] - x[..., :-1], x[..., 1:, :] - x[..., :-1, :]
 
     def term(f_g, i_g):
-        return (f_g.abs() * torch.exp(-i_g.abs().mean(dim=1, keepdim=True))).mean()
+        return mesh.batch_mean(
+            f_g.abs() * torch.exp(-i_g.abs().mean(dim=1, keepdim=True)))
 
     f_dx, f_dy = grad(feature)
     i_dx, i_dy = grad(img_s)
@@ -123,7 +130,7 @@ def smooth_loss(disp: Tensor, img: Tensor) -> Tensor:
     grad_img_y = (img[:, :, :-1] - img[:, :, 1:]).abs().mean(1, keepdim=True)
     grad_disp_x = grad_disp_x * torch.exp(-grad_img_x)
     grad_disp_y = grad_disp_y * torch.exp(-grad_img_y)
-    return grad_disp_x.mean() + grad_disp_y.mean()
+    return mesh.batch_mean(grad_disp_x) + mesh.batch_mean(grad_disp_y)
 
 
 def normalized_smooth_loss(disp: Tensor, img: Tensor) -> Tensor:
@@ -198,7 +205,7 @@ def mono_losses(noise: Tensor | None, disp: Tensor, color: Tensor,
         ident_min = _reduce_sources(identity_maps, avg_reprojection)
         mask = automask(reproj_min, ident_min + noise * 1e-5)
 
-    reproj = (reproj_min * mask).sum() / (mask.sum() + 1e-7)
+    reproj = mesh.masked_mean(reproj_min, mask)
     sm = normalized_smooth_loss(
         disp, color if smooth_color is None else smooth_color)
     total = reproj + smoothness_weight * sm
@@ -243,8 +250,9 @@ def multi_losses(disp: Tensor, color: Tensor, warped: Sequence[Tensor],
     mask = consistency_mask_in[:, None] * (1.0 - augmentation_mask)
     consistency_mask = 1.0 - mask
 
-    reproj = (multi_min_reproj * mask).sum() / (mask.sum() + 1e-7)
-    consistency = ((multi_depth - mono_depth).abs() * consistency_mask).mean()
+    reproj = mesh.masked_mean(multi_min_reproj, mask)
+    consistency = mesh.batch_mean(
+        (multi_depth - mono_depth).abs() * consistency_mask)
     sm = normalized_smooth_loss(
         disp, color if smooth_color is None else smooth_color)
     loss = reproj + consistency + smoothness_weight * sm
@@ -264,7 +272,8 @@ def multi_losses(disp: Tensor, color: Tensor, warped: Sequence[Tensor],
         distil_depth = torch.where(idx == 0, mono_depth, ensemble_depth)
         distil_depth = torch.where(idx == 2, multi_depth, distil_depth)
 
-    distil = ((distil_depth - multi_depth).abs() * (1.0 - consistency_mask)).mean()
+    distil = mesh.batch_mean(
+        (distil_depth - multi_depth).abs() * (1.0 - consistency_mask))
     return MultiLossOut(loss, distil, reproj, consistency, sm, consistency_mask)
 
 
@@ -313,12 +322,13 @@ def loss_balance(state: LossBalancerState, loss_list: Tensor,
     """Weighted total (keeps the gradient) and the updated balancer state.
 
     loss_list: (2,) [original_loss, distil_loss]; the statistics use
-    detached values. lambda_adjust: max(start + epoch * slope, min)
-    (`manydepth/trainer.py:458`).
+    detached values, those of the global batch in a data-parallel step
+    (where `loss_list` holds this rank's shares). lambda_adjust:
+    max(start + epoch * slope, min) (`manydepth/trainer.py:458`).
     """
     total = state.w[0] * loss_list[0] + state.w[1] * loss_list[1]
 
-    stats = loss_list.detach()
+    stats = mesh.global_sum(loss_list.detach())
     running = state.running_sum + stats
     count = state.count + 1.0
     mean = running / count

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mal_tpu_torch.ops import precision
+from mal_tpu_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -38,7 +39,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     after a training forward are what differ, strongly at small maps.
 
     A bf16 input is normalised in fp32 (statistics, scale and shift) and the
-    result rounded to bf16, by torch's own mixed-type batch norm."""
+    result rounded to bf16, by torch's own mixed-type batch norm.
+
+    In a data-parallel step (`parallel/mesh.py:data_axis`) the training
+    moments are those of the global batch: E[x] and E[x^2] all-reduced, the
+    gradient flowing through them, and the running variance flax's biased
+    one (`torch.nn.SyncBatchNorm` would update it with the unbiased)."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -48,6 +54,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: Tensor) -> Tensor:
         if not self.training:
             return super().forward(x)
+        if mesh.data_world() > 1:
+            return self._global_forward(x)
         # torch updates `var` to (1 - m) old + m * v * n / (n - 1), with v
         # the biased batch variance; subtracting (var - (1 - m) old) / n
         # takes back the n / (n - 1). The op gets a copy, which autograd may
@@ -66,6 +74,20 @@ class BatchNorm2d(nn.BatchNorm2d):
                 var - (var - (1.0 - self.momentum) * self.running_var) / n)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_forward(self, x: Tensor) -> Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean, var = mesh.global_moments(xf)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        scale = self.weight * torch.rsqrt(var + self.eps)
+        y = (xf - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        if not self.recomputing:
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
+                self.running_var.mul_(1.0 - m).add_(m * var.detach())
+                self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):

@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from mal_tpu_torch.ops.cost_volume import plane_sweep_terms
+from mal_tpu_torch.ops.cuda import refuse_grad
 
 Tensor = torch.Tensor
 
@@ -281,6 +282,7 @@ def plane_sweep_diffs(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
     optional int32 (3,) tensor to which the kernel adds how many tiles it
     took by each route (ROUTES; `plane_sweep_routes` predicts them).
     """
+    refuse_grad("plane_sweep_diffs", cur, lookup, M, t, depth_bins)
     if cur.device.type == "cpu":
         D = depth_bins.shape[0]
         return plane_sweep_diffs_reference(cur, lookup, M, t, depth_bins,
@@ -318,6 +320,8 @@ def plane_sweep_diffs_occ(cur: Tensor, lookup: Tensor, occ: Tensor,
     `plane_sweep_diffs_occ_reference`, and `routes` as in
     `plane_sweep_diffs`. CUDA tensors go to the kernel; CPU tensors to the
     plain version."""
+    refuse_grad("plane_sweep_diffs_occ", cur, lookup, occ, apply_occ, M, t,
+                depth_bins)
     if cur.device.type == "cpu":
         D = depth_bins.shape[0]
         return plane_sweep_diffs_occ_reference(cur, lookup, occ, apply_occ, M,

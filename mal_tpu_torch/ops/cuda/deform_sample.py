@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from mal_tpu_torch.ops.cuda import refuse_grad
 from mal_tpu_torch.ops.interp import grid_sample
 
 Tensor = torch.Tensor
@@ -143,6 +144,8 @@ def ms_deform_attn_core(value: Tensor, spatial_shapes: list[tuple[int, int]],
     """Deformable sampling (B, Lq, heads * ch); arguments as
     `ms_deform_attn_core_per_level`. CUDA tensors go to the kernel, CPU
     tensors to the plain version."""
+    refuse_grad("ms_deform_attn_core", value, sampling_locations,
+                attention_weights)
     if value.device.type == "cpu":
         return ms_deform_attn_core_per_level(value, spatial_shapes,
                                              sampling_locations,
@@ -218,6 +221,7 @@ def deform_sample_fused(vm0: Tensor, vm1: Tensor, vm2: Tensor, x: Tensor,
                         shapes: tuple[tuple[int, int], ...], ch: int) -> Tensor:
     """K5b (G, T, ch, S); arguments as `deform_sample_fused_reference`.
     CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    refuse_grad("deform_sample_fused", vm0, vm1, vm2, x, y, aw)
     if x.device.type == "cpu":
         return deform_sample_fused_reference(vm0, vm1, vm2, x, y, aw, shapes,
                                              ch)

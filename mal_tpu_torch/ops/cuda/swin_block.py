@@ -35,6 +35,7 @@ import ctypes
 
 import torch
 
+from mal_tpu_torch.ops.cuda import refuse_grad
 from mal_tpu_torch.ops.cuda.window_attention import (HEAD_DIM,
                                                      relative_position_index)
 
@@ -168,6 +169,8 @@ def swin_attn_fused(xr: Tensor, valid: Tensor, ln_scale: Tensor,
                     compute_dtype: torch.dtype = torch.float32) -> Tensor:
     """K2; arguments as `swin_attn_reference`. CUDA tensors go to the
     kernel, CPU tensors to the plain version."""
+    refuse_grad("swin_attn_fused", xr, valid, ln_scale, ln_bias, wqkv, bqkv,
+                table, mask, wproj, bproj)
     if xr.device.type == "cpu":
         return swin_attn_reference(
             xr, valid, ln_scale, ln_bias, wqkv, bqkv, table, mask, wproj,
@@ -237,6 +240,7 @@ def swin_mlp_fused(x: Tensor, ln_scale: Tensor, ln_bias: Tensor, w1: Tensor,
                    compute_dtype: torch.dtype = torch.float32) -> Tensor:
     """K3; arguments as `swin_mlp_reference`. CUDA tensors go to the
     kernel, CPU tensors to the plain version."""
+    refuse_grad("swin_mlp_fused", x, ln_scale, ln_bias, w1, b1, w2, b2)
     if x.device.type == "cpu":
         return swin_mlp_reference(x, ln_scale, ln_bias, w1, b1, w2, b2,
                                   compute_dtype=compute_dtype)

@@ -37,6 +37,8 @@ import ctypes
 import numpy as np
 import torch
 
+from mal_tpu_torch.ops.cuda import refuse_grad
+
 Tensor = torch.Tensor
 
 SOURCE = "window_attention"
@@ -133,6 +135,7 @@ def window_attention(qkv: Tensor, table: Tensor, mask: Tensor | None,
     """Window attention (nW, N, C); arguments as
     `window_attention_reference`, the mask as the module's preconditions
     say. CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    refuse_grad("window_attention", qkv, table, mask)
     if qkv.device.type == "cpu":
         return window_attention_reference(qkv, table, mask, num_heads)
     if qkv.device.type != "cuda":

@@ -17,6 +17,7 @@ from mal_tpu_torch.config import Config
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.losses import LossBalancerState
 from mal_tpu_torch.models.mal_model import MALModel
+from mal_tpu_torch.parallel import mesh
 from mal_tpu_torch.train.lr_schedule import make_schedule
 
 Tensor = torch.Tensor
@@ -53,17 +54,20 @@ class DepthBinTracker:
         `track_stats` adds the mean and median EMAs with the reference's
         quirks (`dualrefine/trainer.py:357-363`): the mean reduces batch
         element 0 only, the median is the batch mean of each image's median
-        of its row medians, torch's lower median for even lengths."""
+        of its row medians, torch's lower median for even lengths.
+
+        In a data-parallel step `mono_depth` is this rank's shard and the
+        batch means are the global batch's; element 0 is rank 0's."""
         per_img_min = mono_depth.amin(dim=(1, 2, 3))
         per_img_max = mono_depth.amax(dim=(1, 2, 3))
-        mn = (per_img_min.mean() * 0.9).clamp(min=opt_min_depth)
-        mx = per_img_max.mean() * 1.1
+        mn = (mesh.global_mean(per_img_min) * 0.9).clamp(min=opt_min_depth)
+        mx = mesh.global_mean(per_img_max) * 1.1
         mean_d, median_d = self.mean_depth, self.median_depth
         if track_stats:
             d = mono_depth[:, 0]                                  # (B, H, W)
             row_med = d.median(dim=-1).values                     # (B, H)
-            new_median = row_med.median(dim=-1).values.mean()
-            mean_d = mean_d * ema + d[0].mean() * (1.0 - ema)
+            new_median = mesh.global_mean(row_med.median(dim=-1).values)
+            mean_d = mean_d * ema + mesh.from_rank0(d[0].mean()) * (1.0 - ema)
             median_d = median_d * ema + new_median * (1.0 - ema)
         return DepthBinTracker(self.min_depth * ema + mn * (1.0 - ema),
                                self.max_depth * ema + mx * (1.0 - ema),

@@ -18,6 +18,12 @@ losses, the optimizer, the depth bins and the balancer stay fp32.
 Random draws: the matching augmentation's uniform draw and the automask
 tie-break noise come from `generator`, or are passed in `draws` so that a
 test can feed both packages the same numbers.
+
+Data parallelism: in a process group of N processes (`parallel/
+distributed.py`) each step runs on the process's shard inside
+`parallel/mesh.py:data_axis`, with the gradients summed over the ranks
+before the update: the step of the N shards is the one-process step on
+their concatenation, as `mal_tpu`'s mesh step is.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from mal_tpu_torch.models.mal_model import MALModel, to_nchw
 from mal_tpu_torch.models.resnet import remat
 from mal_tpu_torch.ops.interp import grid_sample
 from mal_tpu_torch.ops.precision import compute_dtype_of
+from mal_tpu_torch.parallel import distributed, mesh
 from mal_tpu_torch.pareto import pareto_weights_2task
 from mal_tpu_torch.segment.cache import instances_from_batch
 from mal_tpu_torch.temporal import image_synthesis
@@ -54,18 +61,12 @@ LOSS_PCT_REFUSAL = (
 
 def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
     """Raise for the options whose code paths are not ported yet, for those
-    `mal_tpu` cannot run, and for the temporal hint without a segmenter."""
+    `mal_tpu` cannot run, for the temporal hint without a segmenter, and
+    for a `num_data_shards` that does not fit the process group."""
     if cfg.method not in ("manydepth", "dynamicdepth", "dualrefine"):
         raise ValueError(f"unknown method {cfg.method!r}")
     dynamic = cfg.method == "dynamicdepth"
-    # each with the ROADMAP item where it waits
-    unported = {
-        "num_depth_shards > 1": ("M6", cfg.num_depth_shards > 1),
-        "num_data_shards > 1": ("M6", cfg.num_data_shards > 1),
-    }
-    for name, (item, on) in unported.items():
-        if on:
-            raise NotImplementedError(f"{name}: not yet ported (ROADMAP {item})")
+    check_parallel(cfg, distributed.world())
     if cfg.method == "dualrefine":
         # mal_tpu's DualRefine step reads none of the ManyDepth options; it
         # asserts the frame pair (`mal_tpu/dualref/step.py:74-75`)
@@ -78,10 +79,6 @@ def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
         raise NotImplementedError(LOSS_PCT_REFUSAL)
     compute_dtype_of(cfg.compute_dtype)   # raises on an unknown type
     if dynamic:
-        if cfg.online_doj:
-            raise NotImplementedError(
-                "online_doj: the online dynamic-object masks wait for the "
-                "port of segment/doj.py (ROADMAP M7)")
         if cfg.remat:
             raise NotImplementedError(
                 "remat with method='dynamicdepth': mal_tpu's DynDepthModel "
@@ -94,6 +91,27 @@ def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
         # as mal_tpu: the reference's ens_disp producer is missing from its
         # snapshot (`manydepth/loss_utils.py:240` reads a key no module writes)
         raise NotImplementedError("learn_ens: broken in the reference")
+
+
+def check_parallel(cfg: Config, world: int) -> None:
+    """Raise for the parallel layouts a run of `world` processes cannot
+    take: depth-plane sharding, and a `num_data_shards` other than 0, 1 or
+    `world` (in one process, more than 1 is `mal_tpu`'s single-process
+    device mesh, which the port runs as one process per card)."""
+    if cfg.num_depth_shards > 1:
+        raise NotImplementedError(
+            "num_depth_shards > 1: not yet ported (ROADMAP M6, the depth "
+            "axis: the cost volume's planes sharded across processes)")
+    shards = cfg.num_data_shards
+    if world == 1 and shards > 1:
+        raise NotImplementedError(
+            f"num_data_shards={shards} in one process: the port's data "
+            "parallelism runs one process per card, launched with "
+            "--coordinator host:port --num_hosts N --host_id i "
+            "(README, ROADMAP M6)")
+    if shards not in (0, 1, world):
+        raise ValueError(f"num_data_shards={shards} must be 0, 1 or the "
+                         f"number of processes, {world}")
 
 
 def warp_frame(src: Tensor, depth: Tensor, T: Tensor, K: Tensor,
@@ -272,8 +290,9 @@ def make_loss_fn(cfg: Config, model: MALModel,
             total, new_balancer = losses.loss_balance(
                 balancer, torch.stack([ori_loss, multi_out.distil_loss]), lam)
             # the reference re-adds the weighted scalar once per batch item
-            # (`loss_utils.py:303-312`), so the objective is B x the sum
-            total = total * color0.shape[0]
+            # (`loss_utils.py:303-312`), so the objective is B x the sum,
+            # B the global batch
+            total = total * (color0.shape[0] * mesh.data_world())
         elif cfg.distil:
             # the reference's plain-distil total counts the mono loss twice
             # (aliased "loss/0" / "loss" keys, `loss_utils.py:277-279`)
@@ -315,8 +334,9 @@ def _pareto_backward(cfg: Config, model: torch.nn.Module,
     min-norm weights of the first two (`pareto.py`). The weights' dot
     products run over every parameter, frozen sub-nets included, as
     `mal_tpu`'s run over all of `state.params`; a parameter a loss does not
-    reach has a zero gradient. Returns the metrics the pareto step
-    overrides."""
+    reach has a zero gradient. In a data-parallel step the three gradients
+    are summed over the ranks first, so that the products are those of the
+    global batch. Returns the metrics the pareto step overrides."""
     params = list(model.parameters())
     grads = []
     for i in range(3):
@@ -324,6 +344,7 @@ def _pareto_backward(cfg: Config, model: torch.nn.Module,
                                 allow_unused=True)
         grads.append([torch.zeros_like(p) if gi is None else gi
                       for p, gi in zip(params, g)])
+    mesh.all_reduce_([g for gs in grads for g in gs])
     g_multi, g_distil, g_mono = grads
     w0, w1 = pareto_weights_2task(g_multi, g_distil, *cfg.pareto_c)
     for p, a, b, c in zip(params, g_multi, g_distil, g_mono):
@@ -337,22 +358,29 @@ def _pareto_backward(cfg: Config, model: torch.nn.Module,
 
 
 def make_train_step(cfg: Config, device: str | torch.device | None = None,
-                    seg_fn: Callable | None = None) -> Callable:
+                    seg_fn: Callable | None = None,
+                    doj_fn: Callable | None = None) -> Callable:
     """`train_step(state, batch, epoch=0.0, generator=None, draws=None)
     -> (state, metrics)` on `device` (default: the GPU, raising if there
     is none). `seg_fn` as in `make_loss_fn`. `cfg.method="dynamicdepth"`
-    gives `mal_tpu_torch.dynamic.step.make_dynamic_train_step`'s step,
-    `"dualrefine"` `mal_tpu_torch.dualref.step.make_dualref_train_step`'s.
+    gives `mal_tpu_torch.dynamic.step.make_dynamic_train_step`'s step, with
+    `doj_fn` the online masks of `online_doj`; `"dualrefine"`
+    `mal_tpu_torch.dualref.step.make_dualref_train_step`'s.
 
     `draws` may hold "matching_aug" (B,) and "automask_noise" (B, 1, H, W)
     to inject the step's random draws. The learning rate of step n is the
     schedule at n, counted before the increment, as optax counts it (so
     step 0 trains at `init_lr`).
+
+    In a process group (`parallel/distributed.py`) the step is data
+    parallel over its processes: `batch` and `draws` are this process's
+    shard of the global batch's, and every rank ends with the same state
+    and the global batch's metrics.
     """
     if cfg.method == "dynamicdepth":
         from mal_tpu_torch.dynamic.step import make_dynamic_train_step
 
-        return make_dynamic_train_step(cfg, device)
+        return make_dynamic_train_step(cfg, device, doj_fn)
     check_supported(cfg, seg_fn)
     if cfg.method == "dualrefine":
         from mal_tpu_torch.dualref.step import make_dualref_train_step
@@ -362,6 +390,7 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
     train_teacher = not cfg.freeze_teacher_and_pose
     schedule = make_schedule(cfg)
 
+    @data_parallel
     def train_step(state: TrainState, batch: dict, epoch: float = 0.0,
                    generator: torch.Generator | None = None,
                    draws: dict | None = None):
@@ -383,6 +412,7 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
             pareto_metrics = _pareto_backward(cfg, model, aux["components"])
         else:
             total.backward()
+            mesh.all_reduce_grads(model.parameters())
         apply_gradients(state.optimizer, schedule(state.step),
                         cfg.grad_clip_norm)
 
@@ -394,8 +424,21 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
         state.step += 1
         metrics = dict(aux["metrics"])
         metrics.update(pareto_metrics)
+        # the balancer's weights are global already; the rest are shares
+        metrics = mesh.sum_metrics(metrics, keep=("w_ori", "w_distil"))
         metrics["min_depth_bin"] = state.bins.min_depth
         metrics["max_depth_bin"] = state.bins.max_depth
         return state, metrics
 
     return train_step
+
+
+def data_parallel(train_step: Callable) -> Callable:
+    """`train_step` run inside `parallel/mesh.py:data_axis` over the
+    default process group (the plain step in one process)."""
+    @functools.wraps(train_step)
+    def step(*args, **kwargs):
+        with mesh.data_axis(distributed.world()):
+            return train_step(*args, **kwargs)
+
+    return step

@@ -10,6 +10,12 @@ loss-balancer resets, checkpoints and resume. The numerical work lives in
 `freeze_teacher_epoch` only the refinement student trains, and a
 checkpoint is saved at the end of every `save_frequency`-th epoch.
 
+In a process group (`parallel/distributed.py`, one process per card)
+every process trains on its loader's shard: the state is broadcast from
+rank 0 once, the step is data parallel (`train/step.py`), each rank's
+draws come from its own generator (`rank_seed`), and only rank 0 logs,
+validates and writes checkpoints; every rank's state stays the same.
+
 The loader yields numpy batches; each goes to the card through pinned
 memory with `non_blocking=True`. The trainer records, per step, how long it
 waited on the loader (`loader_wait_s`) and the host time from asking for
@@ -30,6 +36,7 @@ import torch
 from mal_tpu_torch.config import Config
 from mal_tpu_torch.device import batch_to_device, resolve_device
 from mal_tpu_torch.eval.evaluate import evaluate_depth_maps, infer_disparities
+from mal_tpu_torch.parallel import distributed, mesh
 from mal_tpu_torch.train.state import create_train_state, make_optimizer
 from mal_tpu_torch.train.step import make_train_step
 from mal_tpu_torch.utils.checkpoint import save_checkpoint
@@ -75,12 +82,17 @@ def _default_sink(cfg: Config):
     return multi_sink(*sinks)
 
 
+def _no_sink(metrics: dict, step: int) -> None:
+    """The sink of a rank other than 0, which logs nothing."""
+
+
 class Trainer:
     """Training on one device: the card unless `device="cpu"` is passed.
 
     `seg_state` is the frozen Mask2Former's detectron2 state dict (from
     `mal_tpu_torch.convert.mask2former.load_pkl`), required when
-    `cfg.temporal` / `cfg.main_temporal` is on; the segmenter is a Swin-L
+    `cfg.temporal` / `cfg.main_temporal` is on, or DynamicDepth's
+    `cfg.online_doj`; the segmenter is a Swin-L
     Mask2Former, in fast mode with bf16 blocks (and K2 / K3 on the card).
     Weights are drawn from `seed` (not with `init_weights=False`, for a
     trainer that resumes next), and so are the step's random draws."""
@@ -109,17 +121,25 @@ class Trainer:
         self.train_loader = train_loader
         self.val_batches = val_batches
         self.gt_depths = gt_depths
-        self.logger = logger or MetricLogger(sink=_default_sink(cfg))
+        # one process per card: rank 0 alone logs (a wandb run and a
+        # metrics.jsonl for the job, not one a process), validates and saves
+        self.rank = distributed.rank()
+        self.logger = logger or MetricLogger(
+            sink=_default_sink(cfg) if self.rank == 0 else _no_sink)
 
-        seg_fn = None
-        if cfg.temporal or cfg.main_temporal:
+        # the frozen Mask2Former: for the MAL temporal hint
+        # (`manydepth/trainer.py:350-357`) and for the online dynamic-object
+        # masks (`online_doj`, `segment/doj.py`)
+        seg_fn = doj_fn = None
+        online_doj = cfg.method == "dynamicdepth" and cfg.online_doj
+        if cfg.temporal or cfg.main_temporal or online_doj:
             if seg_state is None:
                 # the reference always builds the segmenter from pretrained
                 # COCO weights (`manydepth/options.py:288-295`); a random
                 # Mask2Former would make the hint synthesize noise
                 raise ValueError(
-                    "cfg.temporal / main_temporal requires pretrained "
-                    "Mask2Former weights: pass seg_state (see "
+                    "cfg.temporal / main_temporal / online_doj requires "
+                    "pretrained Mask2Former weights: pass seg_state (see "
                     "mal_tpu_torch.convert.mask2former.load_pkl)")
             from mal_tpu_torch.convert.mask2former import load_mask2former_state
             from mal_tpu_torch.segment.mask2former import (
@@ -131,14 +151,24 @@ class Trainer:
                 fused_swin=resolve_fused_swin(cfg, self.device),
                 init_weights=False)
             load_mask2former_state(self.seg_model, seg_state)
-            seg_fn = make_seg_fn(self.seg_model, cfg.max_instances)
+            if cfg.temporal or cfg.main_temporal:
+                seg_fn = make_seg_fn(self.seg_model, cfg.max_instances)
+            if online_doj:
+                from mal_tpu_torch.segment.doj import make_doj_fn
+
+                doj_fn = make_doj_fn(self.seg_model, cfg.max_instances,
+                                     score_threshold=cfg.ins_threshold)
         # raises for the options not yet ported (`check_supported`)
-        self.step_fn = make_train_step(cfg, self.device, seg_fn=seg_fn)
+        self.step_fn = make_train_step(cfg, self.device, seg_fn=seg_fn,
+                                       doj_fn=doj_fn)
         self.state = create_train_state(
             cfg, self.device, generator=torch.Generator().manual_seed(seed),
             init_weights=init_weights)
         self.model = self.state.model
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # rank 0's state everywhere
+        mesh.broadcast_state(self.state)
+        self.generator = torch.Generator(device=self.device).manual_seed(
+            distributed.rank_seed(seed, self.rank))
         self.step = 0
         self.loader_wait_s: list[float] = []
         self.step_s: list[float] = []
@@ -200,6 +230,7 @@ class Trainer:
                     f"no step_* checkpoint under {ckpt_path}")
             ckpt_path = latest
         load_checkpoint(ckpt_path, self.state)
+        mesh.broadcast_state(self.state)
         self.step = self.state.step
         return self.step
 
@@ -238,7 +269,7 @@ class Trainer:
             batch = batch_to_device(host, self.device)
             self.state, metrics = self.step_fn(self.state, batch, float(epoch),
                                                self.generator)
-            if self.step % cfg.log_every == 0:
+            if self.rank == 0 and self.step % cfg.log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m["lr_step"] = self.step
                 m["elapsed"] = time.time() - self.start_time
@@ -250,7 +281,8 @@ class Trainer:
             # (`manydepth/trainer.py:514`)
             periodic = (self.step != 0 and self.step % cfg.validate_every == 0
                         and self.step > cfg.validate_from)
-            if (early or periodic) and self.val_batches is not None:
+            if ((early or periodic) and self.val_batches is not None
+                    and self.rank == 0):
                 results = self.validate()
                 self.logger.log({f"val/{k}": v for k, v in results.items()},
                                 self.step)
@@ -265,7 +297,7 @@ class Trainer:
         # DualRefine's end-of-epoch save (`dualrefine/trainer.py:219`; the
         # other methods save at validation)
         if (dualrefine and cfg.ckpt_dir and cfg.save_frequency > 0
-                and (epoch + 1) % cfg.save_frequency == 0):
+                and (epoch + 1) % cfg.save_frequency == 0 and self.rank == 0):
             save_checkpoint(os.path.join(
                 cfg.ckpt_dir, f"{cfg.model_name}_e{epoch}"), self.state, cfg)
         print(f"epoch {epoch} done at step {self.step} "

@@ -176,15 +176,21 @@ def test_entry_points_need_the_card_unless_asked(tree, monkeypatch):
 
 @pytest.mark.parametrize("argv,match", [
     (["finetune-seg", "--images", "x", "--annotations", "y"], "M7"),
-    (["train", "--data_path", "kitti", "--coordinator", "h:1"], "M6"),
-    (["train", "--data_path", "kitti", "--num_hosts", "4"], "M6"),
-    (["train", "--data_path", "kitti", "--host_id", "1"], "M6"),
+    # the depth axis is refused before any process joins a group
+    (["train", "--data_path", "kitti", "--coordinator", "h:1", "--set",
+      "num_depth_shards=2"], "M6"),
+    (["train", "--data_path", "kitti", "--num_hosts", "4", "--set",
+      "num_depth_shards=2"], "M6"),
+    (["train", "--data_path", "kitti", "--host_id", "1", "--set",
+      "num_depth_shards=2"], "M6"),
     (["train", "--data_path", "kitti", "--set", "method='dualrefine'",
       "num_depth_shards=2"], "M6"),
+    # one process: mal_tpu's device mesh, run as one process per card
     (["train", "--data_path", "kitti", "--set", "num_data_shards=2"], "M6"),
     (["train", "--data_path", "kitti", "--set", "num_depth_shards=2"], "M6"),
-    (["train", "--data_path", "kitti", "--set", "method='dynamicdepth'",
-      "online_doj=True"], "M7")])
+    # online_doj now trains (tests/test_torch_doj.py); fine-tuning waits
+    (["finetune-seg", "--seg_pkl", "x.pkl", "--set", "online_doj=True"],
+     "M7")])
 def test_refusals_name_the_roadmap_item(tree, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         main(argv + ["--device", "cpu"])

@@ -7,11 +7,38 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from mal_tpu.config import Config
 
 CFG = Config(height=64, width=96, num_depth_bins=16, batch_size=2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for the port in a module that imports this
+    fixture: the suite runs several workers on the host's cores, and
+    PyTorch's default of one thread per core then oversubscribes them (a
+    CPU step ran ~30x slower under a six-worker run)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def compiled(fn, *args):
+    """`jax.jit(fn)` compiled for `args` without LLVM's expensive passes:
+    the same numbers (a step's loss agrees to the bit) for a fifth less
+    compile time, which dominates the parity tests' set-up. Call the
+    result with arguments of the same shapes and types."""
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_llvm_disable_expensive_passes": True})
+
+
+def run_jitted(fn, *args):
+    """`jax.jit(fn)(*args)` through `compiled`."""
+    return compiled(fn, *args)(*args)
 
 
 def np_batch(cfg: Config, seed: int = 0, batch_size: int = 2) -> dict:

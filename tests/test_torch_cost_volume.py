@@ -22,6 +22,8 @@ from mal_tpu.ops.pallas.cost_volume_kernel import (plane_sweep_cost_volume_palla
 from mal_tpu_torch.ops import cost_volume as tcv
 from mal_tpu_torch.ops.cuda import cost_volume_kernel as tk
 
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
+
 ATOL = 3e-5
 
 

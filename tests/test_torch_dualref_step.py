@@ -54,8 +54,8 @@ from mal_tpu_torch.train.state import (DepthBinTracker, TrainState,
 from mal_tpu_torch.train.step import check_supported, make_train_step
 from mal_tpu_torch.losses import LossBalancerState
 
-from test_torch_common import (nchw, np_batch, random_tree, to_jax,
-                               to_numpy, to_torch, torch_cfg)
+from test_torch_common import (nchw, np_batch, random_tree, run_jitted,
+                               to_jax, to_numpy, to_torch, torch_cfg)
 
 CFG = JConfig(method="dualrefine", height=64, width=96, batch_size=2,
               deq_iters=4, corr_radius=2, corr_levels=2)
@@ -76,13 +76,6 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
-
-
-def run_jitted(fn, *args):
-    """`jax.jit(fn)(*args)` compiled without LLVM's expensive passes: the
-    same numbers, less compile time, which dominates these files."""
-    return jax.jit(fn).lower(*args).compile(
-        {"xla_llvm_disable_expensive_passes": True})(*args)
 
 
 @functools.lru_cache(maxsize=None)

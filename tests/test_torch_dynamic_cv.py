@@ -26,6 +26,8 @@ from mal_tpu_torch.ops.cost_volume import plane_sweep_terms
 from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
     plane_sweep_diffs_occ, plane_sweep_diffs_occ_reference)
 
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
+
 B, NF, h, w, C, D = 2, 2, 16, 32, 8, 8
 H, W = 4 * h, 4 * w
 RTOL = ATOL = 2e-5   # as tests/test_dynamic_model.py holds mal_tpu's twins

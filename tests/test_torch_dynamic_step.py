@@ -53,8 +53,9 @@ from mal_tpu_torch.train.state import (DepthBinTracker, TrainState,
 from mal_tpu_torch.train.step import make_train_step
 
 from test_torch_common import (END_TO_END, as_f32, np_batch,
-                               random_mal_variables, to_jax, to_numpy,
-                               to_torch, torch_cfg)
+                               random_mal_variables, run_jitted, to_jax,
+                               to_numpy, to_torch, torch_cfg)
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = JConfig(height=64, width=96, num_depth_bins=16, batch_size=2,
               method="dynamicdepth", cv_min=True, cv_set_1=True,
@@ -80,14 +81,6 @@ def _batch():
     batch["doj_mask-1"] = np.roll(doj, -4, axis=2)
     batch["doj_mask+1"] = np.roll(doj, 4, axis=2)
     return batch
-
-
-def _run_jitted(fn, *args):
-    """`jax.jit(fn)(*args)`, compiled without LLVM's expensive passes: the
-    same numbers (the loss agrees to the bit), a fifth less compile time,
-    which dominates this file's run."""
-    return jax.jit(fn).lower(*args).compile(
-        {"xla_llvm_disable_expensive_passes": True})(*args)
 
 
 def _draws(key):
@@ -185,7 +178,7 @@ def forward(setup):
                           train=False, is_train_phase=False, mutable=False)
         return train, ev
 
-    want = to_numpy(_run_jitted(run, params, stats, to_jax(batch)))
+    want = to_numpy(run_jitted(run, params, stats, to_jax(batch)))
     tb = to_torch(batch)
     with torch.no_grad():   # on a copy: the training forward moves the BN EMA
         train = copy.deepcopy(model)(tb, torch.tensor(0.1), torch.tensor(10.0),
@@ -235,7 +228,7 @@ def step(setup):
                     batch_stats=jax.tree.map(jnp.asarray, stats),
                     opt_state=tx.init(jparams), bins=JBins.create(),
                     balancer=JBalancer.create())
-    jstate, jm = _run_jitted(
+    jstate, jm = run_jitted(
         jax_train_step(STEP_CFG, JDynModel(STEP_CFG), tx), jstate,
         to_jax(batch), KEY, jnp.zeros(()))
     mu = jstate.opt_state[1][0].mu
@@ -323,7 +316,7 @@ def _loss_and_grads(cfg, params, stats, batch, port_only=False):
                           rng_model, rng_noise)
         return loss, aux["metrics"]
 
-    (loss, metrics), grads = _run_jitted(
+    (loss, metrics), grads = run_jitted(
         jax.value_and_grad(total, has_aux=True), params, stats, to_jax(batch))
     want = {"loss": float(loss), "metrics": to_numpy(metrics),
             "grads": flax_to_state_dict(*nest_dynamic_tree(
@@ -391,18 +384,19 @@ def test_doj_metrics():
 
 def test_entry_points_and_options(monkeypatch):
     """`make_train_step` gives the DynamicDepth step for its method, and
-    `create_train_state` its model; `online_doj` (which waits for the port
-    of `segment/doj.py`) is refused; `train_teacher_only` leaves the
+    `create_train_state` its model; `online_doj` is refused without the
+    `doj_fn` that makes its masks (tests/test_torch_doj.py runs it);
+    `train_teacher_only` leaves the
     student (`encoder`, with its `reduce_conv`, and `depth`) out of the
     optimizer; without CUDA the entry points raise unless given the CPU."""
     from mal_tpu_torch.dynamic.step import make_dynamic_train_step
     from mal_tpu_torch.train.state import trainable_parameters
 
     cfg = torch_cfg(CFG)
-    state = create_train_state(cfg, device="cpu")
+    state = create_train_state(cfg, device="cpu", init_weights=False)
     assert isinstance(state.model, DynDepthModel)
     assert callable(make_train_step(cfg, device="cpu"))
-    with pytest.raises(NotImplementedError, match="doj"):
+    with pytest.raises(ValueError, match="doj"):
         make_train_step(cfg.replace(online_doj=True), device="cpu")
     kept = {id(p) for p in trainable_parameters(
         cfg.replace(train_teacher_only=True), state.model)}

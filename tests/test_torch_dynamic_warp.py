@@ -28,6 +28,7 @@ from mal_tpu_torch.dynamic import warp as twarp
 from mal_tpu_torch.ops import warp as tops_warp
 
 from test_torch_common import nchw, np_batch, to_jax, to_torch, torch_cfg
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W = 2, 64, 96
 MAX_SHARE = 1e-3    # share of splatted pixels that may land elsewhere

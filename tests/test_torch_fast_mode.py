@@ -70,6 +70,7 @@ from mal_tpu_torch.temporal import image_synthesis
 from test_torch_common import (END_TO_END, SHARE, as_f32, as_torch,
                                check_bf16)
 from test_torch_segment import _random_variables
+from test_torch_common import one_torch_thread, run_jitted  # noqa: F401
 
 UNFUSED_SHARE = 0.85   # the unfused bf16 Swin block, see the module docstring
 NUM_CLASSES, QUERIES, H, W = 5, 8, 64, 96
@@ -80,6 +81,9 @@ NUM_CLASSES, QUERIES, H, W = 5, 8, 64, 96
 # --------------------------------------------------------------------------
 
 def _port_segmenter(variables=None, **kwargs) -> Mask2Former:
+    """The tiny segmenter; without a draw of its weights where they are
+    loaded next."""
+    kwargs.setdefault("init_weights", variables is None)
     port = Mask2Former(num_classes=NUM_CLASSES, swin_size="tiny",
                        num_queries=QUERIES, device="cpu", **kwargs)
     if variables is not None:
@@ -99,10 +103,10 @@ def seg():
     variables = _random_variables(jmodel, jnp.asarray(images))
     x = j_preprocess(jnp.asarray(images))
     fast = _port_segmenter(variables, bf16_backbone=True, fused_swin=True)
-    exact = _port_segmenter()
+    exact = _port_segmenter(init_weights=False)
     exact.load_state_dict(fast.state_dict())
-    feats = jax.jit(lambda p, im: JSwin(
-        "tiny", bf16_compute=True, fused_block=True).apply(p, im))(
+    feats = run_jitted(lambda p, im: JSwin(
+        "tiny", bf16_compute=True, fused_block=True).apply(p, im),
         {"params": variables["params"]["backbone"]}, x)
     return variables, x, fast, exact, feats
 

@@ -37,6 +37,7 @@ from mal_tpu_torch.train.step import make_loss_fn
 from test_torch_common import (CFG, END_TO_END, as_f32, as_torch, check_bf16,
                                np_batch, port_model, random_mal_variables,
                                to_jax, to_torch, torch_cfg)
+from test_torch_common import one_torch_thread, run_jitted  # noqa: F401
 
 FAST_CFG = CFG.replace(**TRAIN_FAST_SETTINGS)
 STEP_CFG = CFG.replace(height=64, width=64, batch_size=1)
@@ -134,8 +135,8 @@ def step(weights):
                           rng_noise, jnp.zeros(()))
         return loss, (aux["mono_depth"], aux["batch_stats"])
 
-    (loss, (depth, new_stats)), grads = jax.jit(
-        jax.value_and_grad(total, has_aux=True))(params)
+    (loss, (depth, new_stats)), grads = run_jitted(
+        jax.value_and_grad(total, has_aux=True), params)
     out = {"want": {"loss": float(loss), "mono_depth": as_f32(depth),
                     "grads": flax_to_state_dict(jax.device_get(grads), {}),
                     "stats": flax_to_state_dict({}, jax.device_get(new_stats))}}

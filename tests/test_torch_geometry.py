@@ -12,6 +12,8 @@ import torch
 from mal_tpu import geometry as jg
 from mal_tpu_torch import geometry as tg
 
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
+
 RTOL = ATOL = 1e-5
 
 

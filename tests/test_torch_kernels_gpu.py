@@ -545,3 +545,16 @@ def test_k5b_matches_plain_version(cuda, G, T, S, ch, shapes):
     torch.testing.assert_close(out, plain, rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="level values"):
         k5.deform_sample_fused(vms[1], vms[1], vms[2], x, y, aw, shapes, ch)
+
+
+@pytest.mark.parametrize("name", ["plane_sweep_diffs", "plane_sweep_diffs_occ",
+                                  "swin_attn_fused", "swin_mlp_fused",
+                                  "window_attention", "ms_deform_attn_core",
+                                  "deform_sample_fused"])
+def test_wrapper_refuses_a_gradient_on_the_card(cuda, name):
+    """tests/test_torch_grad_guard.py's check on CUDA tensors: the kernel
+    runs under no_grad, and a gradient-requiring input raises before any
+    launch."""
+    from test_torch_grad_guard import check_guard
+
+    check_guard(name, cuda)

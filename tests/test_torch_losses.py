@@ -16,6 +16,7 @@ from mal_tpu import losses as jl
 from mal_tpu_torch import losses as tl
 
 from test_torch_common import nchw
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
 
 B, H, W = 2, 16, 24
 TOL = dict(rtol=1e-5, atol=1e-6)

@@ -31,6 +31,7 @@ from mal_tpu_torch.models.resnet import ResNetFeatures
 
 from test_torch_common import (CFG, jax_variables, nchw, np_batch, port_model,
                                to_jax, to_numpy, to_torch)
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 # ResNet-50 in train mode: flax takes the batch variance as E[x^2] - E[x]^2,

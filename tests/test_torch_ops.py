@@ -16,6 +16,7 @@ from mal_tpu_torch.ops import interp as ti
 from mal_tpu_torch.ops.ssim import ssim as tssim
 
 from test_torch_common import nchw
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _image(B=2, H=12, W=20, C=3, seed=0):

@@ -19,7 +19,6 @@ import torch
 
 from mal_tpu import pareto as jpareto
 from mal_tpu.models import MALModel as JaxMALModel
-from mal_tpu.train.state import create_train_state as jax_create_train_state
 from mal_tpu.train.state import make_optimizer as jax_make_optimizer
 from mal_tpu.train.step import make_train_step as jax_make_train_step
 from mal_tpu_torch import pareto
@@ -28,9 +27,11 @@ from mal_tpu_torch.convert.jax_params import (flax_to_state_dict,
 from mal_tpu_torch.train.state import create_train_state
 from mal_tpu_torch.train.step import _pareto_backward, make_train_step
 
-from test_torch_common import (CFG, np_batch, to_jax, to_numpy, to_torch,
-                               torch_cfg)
-from test_torch_train_step import DISTIL_KEYS, DISTIL_RTOL, _draws, _jax_grads
+from test_torch_common import (CFG, np_batch, run_jitted, to_jax, to_numpy,
+                               to_torch, torch_cfg)
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_train_step import (DISTIL_KEYS, DISTIL_RTOL, _draws,
+                                   _jax_grads, jax_initial_state)
 
 PARETO = CFG.replace(pareto=True, loss_blc=False)
 
@@ -122,16 +123,15 @@ def stepped():
     cfg = PARETO
     batch = np_batch(cfg, seed=0, batch_size=cfg.batch_size)
     jmodel = JaxMALModel(cfg)
-    jstate = jax_create_train_state(cfg, jmodel, jax.random.PRNGKey(0),
-                                    to_jax(batch))
+    jstate = jax_initial_state(cfg, jmodel, batch)
     tstate = create_train_state(torch_cfg(cfg), device="cpu",
                                 init_weights=False)
     load_jax_variables(tstate.model, to_numpy(jstate.params),
                        to_numpy(jstate.batch_stats))
     before = copy.deepcopy(tstate.model.state_dict())
-    jstep = jax.jit(jax_make_train_step(cfg, jmodel, jax_make_optimizer(cfg)))
+    jstep = jax_make_train_step(cfg, jmodel, jax_make_optimizer(cfg))
     key = jax.random.PRNGKey(1)
-    jstate, jm = jstep(jstate, to_jax(batch), key, jnp.zeros(()))
+    jstate, jm = run_jitted(jstep, jstate, to_jax(batch), key, jnp.zeros(()))
     tstep = make_train_step(torch_cfg(cfg), device="cpu")
     tstate, tm = tstep(tstate, to_torch(batch), 0.0,
                        draws=_draws(key, cfg.batch_size, cfg.height,

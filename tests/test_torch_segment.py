@@ -46,6 +46,8 @@ from mal_tpu_torch.segment.mask2former import (Mask2Former,
 from mal_tpu_torch.segment.pixel_decoder import position_embedding_sine
 from mal_tpu_torch.segment.swin import shift_mask
 
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
+
 NUM_CLASSES, QUERIES, H, W = 5, 8, 64, 96
 
 
@@ -168,7 +170,7 @@ def seg():
     logits, masks = jmodel.apply(variables, jnp.asarray(images))
 
     port = Mask2Former(num_classes=NUM_CLASSES, swin_size="tiny",
-                       num_queries=QUERIES, device="cpu")
+                       num_queries=QUERIES, device="cpu", init_weights=False)
     load_jax_mask2former(port, variables)
     jax_out = {"x": _np(x), "feats": {k: _np(v) for k, v in feats.items()},
                "mask_features": _np(mask_features),

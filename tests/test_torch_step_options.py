@@ -21,7 +21,6 @@ import torch
 
 from mal_tpu.losses import MonoLossOut, MultiLossOut
 from mal_tpu.models import MALModel as JaxMALModel
-from mal_tpu.train.state import create_train_state as jax_create_train_state
 from mal_tpu.train.state import make_optimizer as jax_make_optimizer
 from mal_tpu.train.step import make_train_step as jax_make_train_step
 from mal_tpu_torch.convert.jax_params import (flax_to_state_dict,
@@ -30,9 +29,10 @@ from mal_tpu_torch.models import encoders
 from mal_tpu_torch.train.state import create_train_state
 from mal_tpu_torch.train.step import make_train_step
 
-from test_torch_common import (CFG, np_batch, to_jax, to_numpy, to_torch,
-                               torch_cfg)
-from test_torch_train_step import DISTIL_KEYS, DISTIL_RTOL, _draws
+from test_torch_common import (CFG, np_batch, run_jitted, to_jax, to_numpy,
+                               to_torch, torch_cfg)
+from test_torch_train_step import (DISTIL_KEYS, DISTIL_RTOL, _draws,
+                                   jax_initial_state)
 
 STUDENT = ("encoder", "depth")
 K1 = encoders.plane_sweep_cost_volume_kernel
@@ -128,16 +128,15 @@ def _against_mal_tpu(cfg):
     port state, port metrics, port weights before the step)."""
     batch = np_batch(cfg, seed=0, batch_size=cfg.batch_size)
     jmodel = JaxMALModel(cfg)
-    jstate = jax_create_train_state(cfg, jmodel, jax.random.PRNGKey(0),
-                                    to_jax(batch))
+    jstate = jax_initial_state(cfg, jmodel, batch)
     tstate = create_train_state(torch_cfg(cfg), device="cpu",
                                 init_weights=False)
     load_jax_variables(tstate.model, to_numpy(jstate.params),
                        to_numpy(jstate.batch_stats))
     before = copy.deepcopy(tstate.model.state_dict())
-    jstep = jax.jit(jax_make_train_step(cfg, jmodel, jax_make_optimizer(cfg)))
+    jstep = jax_make_train_step(cfg, jmodel, jax_make_optimizer(cfg))
     key = jax.random.PRNGKey(1)
-    jstate, jm = jstep(jstate, to_jax(batch), key, jnp.zeros(()))
+    jstate, jm = run_jitted(jstep, jstate, to_jax(batch), key, jnp.zeros(()))
     draws = _draws(key, cfg.batch_size, cfg.height, cfg.width)
     if cfg.disable_automasking:
         draws.pop("automask_noise")     # mal_tpu draws none either

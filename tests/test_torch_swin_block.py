@@ -32,6 +32,8 @@ from mal_tpu_torch.ops.cuda.deform_sample import deform_sample_fused
 from mal_tpu_torch.ops.cuda.swin_block import swin_attn_fused, swin_mlp_fused
 from mal_tpu_torch.segment.swin import shift_mask
 
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
+
 FP32_TOL = dict(rtol=2e-4, atol=2e-5)
 # bf16 outputs of O(1), elementwise: a bf16 ulp is 2^-8 of the value's
 # binade, and a rounding flipped upstream moves an output by an ulp or two

@@ -29,7 +29,6 @@ from mal_tpu.segment.matcher import hungarian_match as j_hungarian
 from mal_tpu.segment.matcher import match_instances as j_match
 from mal_tpu.temporal import _bbox_bounds as j_bbox
 from mal_tpu.temporal import image_synthesis as j_synthesis
-from mal_tpu.train.state import create_train_state as jax_create_train_state
 from mal_tpu.train.state import make_optimizer as jax_make_optimizer
 from mal_tpu.train.step import make_train_step as jax_make_train_step
 from mal_tpu_torch.convert.jax_params import load_jax_variables
@@ -39,9 +38,11 @@ from mal_tpu_torch.temporal import _bbox_bounds, image_synthesis
 from mal_tpu_torch.train.state import create_train_state
 from mal_tpu_torch.train.step import make_train_step
 
-from test_torch_common import (CFG, nchw, np_batch, to_jax, to_numpy, to_torch,
-                               torch_cfg)
-from test_torch_train_step import DISTIL_KEYS, DISTIL_RTOL, _draws, _jax_grads
+from test_torch_common import (CFG, nchw, np_batch, run_jitted, to_jax,
+                               to_numpy, to_torch, torch_cfg)
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
+from test_torch_train_step import (DISTIL_KEYS, DISTIL_RTOL, _draws,
+                                   _jax_grads, jax_initial_state)
 
 B, N, H, W = CFG.batch_size, 4, CFG.height, CFG.width
 
@@ -226,9 +227,10 @@ def start():
     """`mal_tpu`'s and the port's initial states from the same weights."""
     batch = np_batch(CFG, seed=0, batch_size=B)
     jmodel = JaxMALModel(CFG)
-    jstate = jax_create_train_state(CFG, jmodel, jax.random.PRNGKey(0),
-                                    to_jax(batch))
-    tstate = create_train_state(torch_cfg(CFG), device="cpu")
+    jstate = jax_initial_state(CFG, jmodel, batch)
+    # the port's weights are all loaded next: no draw
+    tstate = create_train_state(torch_cfg(CFG), device="cpu",
+                                init_weights=False)
     load_jax_variables(tstate.model, to_numpy(jstate.params),
                        to_numpy(jstate.batch_stats))
     return jmodel, jstate, tstate, batch
@@ -242,10 +244,10 @@ def stepped(request, start):
     jmodel, jstate, tstate0, batch = start
     cfg = CFG.replace(**{request.param: True, "ins_threshold": 0.9})
     j_seg, t_seg = _segmenters()
-    jstep = jax.jit(jax_make_train_step(cfg, jmodel, jax_make_optimizer(cfg),
-                                        seg_fn=j_seg))
+    jstep = jax_make_train_step(cfg, jmodel, jax_make_optimizer(cfg),
+                                seg_fn=j_seg)
     key = jax.random.PRNGKey(1)
-    jstate, jm = jstep(jstate, to_jax(batch), key, jnp.zeros(()))
+    jstate, jm = run_jitted(jstep, jstate, to_jax(batch), key, jnp.zeros(()))
     draws = _draws(key, B, H, W)
     out = {}
     for name, c, seg in (("port", cfg, t_seg), ("plain", CFG, None)):

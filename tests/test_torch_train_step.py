@@ -36,8 +36,9 @@ from mal_tpu_torch.segment.mask2former import resolve_fused_swin
 from mal_tpu_torch.train.state import create_train_state
 from mal_tpu_torch.train.step import make_train_step
 
-from test_torch_common import (CFG, np_batch, to_jax, to_numpy, to_torch,
-                               torch_cfg)
+from test_torch_common import (CFG, compiled, np_batch, run_jitted, to_jax,
+                               to_numpy, to_torch, torch_cfg)
+from test_torch_common import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 2
 # The resumed step: count 47999 is the last before the schedule's first 10x
@@ -69,17 +70,27 @@ def _draws(key, B, H, W):
                 np.asarray(noise)).reshape(B, 1, H, W)}
 
 
+def jax_initial_state(cfg, jmodel, batch):
+    """`mal_tpu`'s `create_train_state` from key 0, jitted (the same values
+    as op by op, in a fraction of the time)."""
+    return run_jitted(lambda r, b: jax_create_train_state(cfg, jmodel, r, b),
+                      jax.random.PRNGKey(0), to_jax(batch))
+
+
 @pytest.fixture(scope="module")
 def setup():
     """Both packages' initial states from the same weights, their steps and
-    the batch."""
+    the batch. `mal_tpu`'s step is compiled once, for every call here."""
     cfg = CFG
     batch = np_batch(cfg, seed=0, batch_size=cfg.batch_size)
     jmodel = JaxMALModel(cfg)
-    jstate = jax_create_train_state(cfg, jmodel, jax.random.PRNGKey(0),
-                                    to_jax(batch))
-    jstep = jax.jit(jax_make_train_step(cfg, jmodel, jax_make_optimizer(cfg)))
-    tstate = create_train_state(torch_cfg(cfg), device="cpu")
+    jstate = jax_initial_state(cfg, jmodel, batch)
+    jstep = compiled(jax_make_train_step(cfg, jmodel, jax_make_optimizer(cfg)),
+                     jstate, to_jax(batch), jax.random.PRNGKey(1),
+                     jnp.zeros(()))
+    # the port's weights are all loaded next: no draw
+    tstate = create_train_state(torch_cfg(cfg), device="cpu",
+                                init_weights=False)
     load_jax_variables(tstate.model, to_numpy(jstate.params),
                        to_numpy(jstate.batch_stats))
     tstep = make_train_step(torch_cfg(cfg), device="cpu")
