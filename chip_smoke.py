@@ -115,8 +115,21 @@ Phases, each of which must pass or the script exits non-zero:
    steps, through a one-process NCCL group (`--coordinator 127.0.0.1:port
    --num_hosts 1 --host_id 0`; it checks the flags and the group's set-up
    only: at world 1 no collective runs, which the phase counts) beside the
-   same command without the flags.
-Phases 5 to 9 set every kernel's launch count to 0 just before each path
+   same command without the flags;
+10. segmenter fine-tuning (phase 4 also holds the Swin-T fine-tuning loss
+   on the card against the CPU, with no kernel launched):
+   `finetune-seg` through `mal_tpu_torch.cli.main` at Swin-L, 256x448,
+   batch 2, 100 queries, an 81-way head, 16 targets and 12,544 points, on a
+   fake COCO tree of 6 seeded 640x480 JPEGs with COCO's 80 sparse ids and
+   2-12 RLE / polygon instances each: 3 steps (every kernel 0), the
+   mask-AP pass (K4 = 24, K5 = 6 a forward) and `model.pkl`; each step's ms
+   and the matching's host ms, the peak memory, ms a forward of the AP pass;
+11. segmenter inference at Swin-L, batch 2: K4 and K5 against their plain
+   versions inside one forward at each TTA scale (192x320, 256x448,
+   320x576), then semantic and panoptic output from one forward and
+   `semantic_tta` at (0.75, 1, 1.25) with flip, each variant timed (K4 =
+   24, K5 = 6 a forward).
+Phases 5 to 11 set every kernel's launch count to 0 just before each path
 (in phase 5b each option, in 7b each step, in 8b the frozen step, in phase
 9 each command) and
 read the counts just after; each kernel must have launched exactly as
@@ -1148,16 +1161,13 @@ def run_path(cfg, steps: int, seg_fn, counters, profile: str | None,
 def main_path_phase(steps: int, profile: bool) -> dict[str, int]:
     """The path without the temporal hint at `Config()`."""
     from mal_tpu_torch.config import Config
-    from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
-        plane_sweep_diffs, plane_sweep_diffs_occ)
 
     cfg = Config()
     print(f"path without the temporal hint: Config() {cfg.height}x"
           f"{cfg.width} batch {cfg.batch_size}, {cfg.num_depth_bins} bins, "
           f"ResNet-{cfg.num_layers}, {cfg.compute_dtype}; {steps} steps + "
           f"1 eval")
-    launches, _, _ = run_path(cfg, steps, None,
-                              [plane_sweep_diffs, plane_sweep_diffs_occ],
+    launches, _, _ = run_path(cfg, steps, None, _counted_wrappers(),
                               "profile_step" if profile else None)
     check(launches["plane_sweep_diffs"] == steps + 1,
           "K1 launch count != steps + evals")
@@ -1378,12 +1388,6 @@ def temporal_path_phase(steps: int, profile: bool, fast: bool):
     import torch
 
     from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
-    from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
-        plane_sweep_diffs, plane_sweep_diffs_occ)
-    from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
-    from mal_tpu_torch.ops.cuda.swin_block import (swin_attn_fused,
-                                                   swin_mlp_fused)
-    from mal_tpu_torch.ops.cuda.window_attention import window_attention
     from mal_tpu_torch.segment.mask2former import (Mask2Former, make_seg_fn,
                                                    resolve_fused_swin)
     from mal_tpu_torch.segment.matcher import match_instances
@@ -1410,8 +1414,7 @@ def temporal_path_phase(steps: int, profile: bool, fast: bool):
           f"Mask2Former Swin-L (bf16_backbone={fast}, fused_swin={fused}), "
           f"{n_params / 1e6:.1f} M parameters, built in "
           f"{time.perf_counter() - t0:.2f} s; {steps} steps + 1 eval")
-    counters = [plane_sweep_diffs, plane_sweep_diffs_occ, swin_attn_fused,
-                swin_mlp_fused, window_attention, ms_deform_attn_core]
+    counters = _counted_wrappers()
     name = "profile_fast_step" if fast else "profile_temporal_step"
     launches, _, batch = run_path(cfg, steps, seg_fn, counters,
                                   name if profile else None)
@@ -1684,11 +1687,6 @@ def online_doj_phase(steps: int, profile: bool, fast: bool,
     import torch
 
     from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
-    from mal_tpu_torch.ops.cuda.cost_volume_kernel import plane_sweep_diffs_occ
-    from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
-    from mal_tpu_torch.ops.cuda.swin_block import (swin_attn_fused,
-                                                   swin_mlp_fused)
-    from mal_tpu_torch.ops.cuda.window_attention import window_attention
     from mal_tpu_torch.segment.doj import make_doj_fn
     from mal_tpu_torch.segment.mask2former import (Mask2Former,
                                                    resolve_fused_swin)
@@ -2332,6 +2330,331 @@ def cli_phase(profile: bool, every: list) -> dict[str, dict[str, int]]:
     return by_path
 
 
+# segmenter fine-tuning and inference (the `finetune-seg` path)
+SEG_FT_LOSS_RTOL = 1e-3   # the small Swin-T train loss, GPU against CPU
+# the full-width fine-tuning run: `finetune-seg`'s defaults at Swin-L
+FT_IMAGES, FT_BATCH, FT_QUERIES, FT_INSTANCES = 6, 2, 100, 16
+FT_HEIGHT, FT_WIDTH = 256, 448
+FT_STEPS = FT_IMAGES // FT_BATCH
+# a Swin-L Mask2Former forward: 24 blocks (K4 each) and 6 deformable
+# encoder layers (K5 each)
+K4_A_FORWARD, K5_A_FORWARD = 24, 6
+TTA_SCALES = (0.75, 1.0, 1.25)
+
+
+def _stacked_draws(layers: int, B: int, T: int, num_points: int, seed: int):
+    import torch
+
+    from mal_tpu_torch.segment.criterion import CriterionConfig, draw_points
+
+    return draw_points(CriterionConfig(num_points=num_points), layers, B, T,
+                       torch.Generator().manual_seed(seed))
+
+
+def small_finetune_reference_phase(every: list) -> None:
+    """The fine-tuning loss of a Swin-T Mask2Former (5 classes, 8 queries,
+    64x96, batch 2, 3 targets with one padded, 64 points, drop-path 0) on
+    the card against the port on the CPU: the same weights, batch and
+    injected points; every loss term within `SEG_FT_LOSS_RTOL`, every
+    kernel count 0 in the training forward (the `train` flag takes the
+    plain versions)."""
+    import torch
+
+    from mal_tpu_torch.segment.criterion import CriterionConfig
+    from mal_tpu_torch.segment.mask2former import (Mask2Former,
+                                                   mask2former_train_loss)
+
+    t_phase = time.perf_counter()
+    g = torch.Generator().manual_seed(7)
+    B, T, H, W, K, P = 2, 3, 64, 96, 5, 64
+    images = torch.rand((B, H, W, 3), generator=g)
+    labels = torch.randint(0, K, (B, T), generator=g)
+    masks = torch.zeros((B, T, H, W))
+    for b in range(B):
+        for t in range(T):
+            y, x = 8 * (b + t), 10 * (t + 1)
+            masks[b, t, y:y + 16 + 4 * t, x:x + 20] = 1.0
+    valid = torch.tensor([[True, True, True], [True, True, False]])
+    draws = _stacked_draws(10, B, T, P, 8)
+    cfg = CriterionConfig(num_classes=K, num_points=P)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        model = Mask2Former(num_classes=K, swin_size="tiny", num_queries=8,
+                            device=dev, generator=torch.Generator()
+                            .manual_seed(1), bgr_input=False,
+                            drop_path_rate=0.0).requires_grad_(True)
+        for fn in every:
+            fn.launches = 0
+        total, losses = mask2former_train_loss(
+            model, images.to(dev), labels.to(dev), masks.to(dev),
+            valid.to(dev), cfg,
+            draws=[{k: v.to(dev) for k, v in d.items()} for d in draws])
+        total.backward()
+        launches = {fn.__name__: fn.launches for fn in every}
+        check(not any(launches.values()),
+              f"the training forward launched kernels: {launches}")
+        res[dev] = {k: v.item() for k, v in losses.items()}
+        res[dev]["total"] = total.item()
+    worst = max(abs(res["cuda"][k] - v) / abs(v) for k, v in res["cpu"].items())
+    print(f"small fine-tuning reference (Swin-T, 64x96, B=2, Q=8, 10 layers "
+          f"of losses): total cpu {res['cpu']['total']:.6f} gpu "
+          f"{res['cuda']['total']:.6f}; largest relative difference of the "
+          f"{len(res['cpu'])} terms {worst:.2e} (rtol {SEG_FT_LOSS_RTOL}); "
+          f"no kernel launched; {time.perf_counter() - t_phase:.2f} s")
+    check(worst <= SEG_FT_LOSS_RTOL, "GPU fine-tuning loss != CPU loss")
+
+
+def finetune_phase(every: list) -> dict[str, dict[str, int]]:
+    """`finetune-seg` through `mal_tpu_torch.cli.main` at Swin-L: a fake
+    COCO tree of 6 seeded 640x480 JPEGs with COCO's 80 sparse category ids
+    and 2-12 instances each (RLE and polygons) under
+    `build/chip_smoke_finetune`, `--size large --height 256 --width 448
+    --batch_size 2 --num_queries 100 --max_instances 16` (the defaults:
+    12,544 points, AdamW 1e-4 / 0.05), 3 steps, the mask-AP pass and the
+    `.pkl`. Counted: every kernel 0 in the steps (the step function is
+    wrapped to read the counts around each call), K4 = 24 and K5 = 6 a
+    forward in the AP pass (3 forwards). Prints each step's ms and the
+    matching's host ms, the peak memory, the AP pass's ms a forward."""
+    import shutil
+
+    import torch
+
+    import mal_tpu_torch.segment.finetune as finetune
+    from mal_tpu_torch.cli import main as cli
+    from mal_tpu_torch.convert.mask2former import load_mask2former_pkl
+    from mal_tpu_torch.data.synthetic import write_fake_coco
+    from mal_tpu_torch.segment.mask2former import Mask2Former
+
+    t_phase = time.perf_counter()
+    root = os.path.abspath(os.path.join("build", "chip_smoke_finetune"))
+    shutil.rmtree(root, ignore_errors=True)
+    paths = write_fake_coco(root, n_images=FT_IMAGES, seed=0)
+    in_steps = {fn.__name__: 0 for fn in every}
+    make_step = finetune.make_seg_finetune_step
+
+    def counting_make_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def counted_step(*a, **k):
+            before = {fn.__name__: fn.launches for fn in every}
+            out = step(*a, **k)
+            for fn in every:
+                in_steps[fn.__name__] += fn.launches - before[fn.__name__]
+            return out
+
+        return counted_step
+
+    for fn in every:
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    finetune.make_seg_finetune_step = counting_make_step
+    try:
+        got = cli(["finetune-seg", "--images", paths["images"],
+                   "--annotations", paths["annotations"], "--size", "large",
+                   "--height", str(FT_HEIGHT), "--width", str(FT_WIDTH),
+                   "--batch_size", str(FT_BATCH), "--num_queries",
+                   str(FT_QUERIES), "--max_instances", str(FT_INSTANCES),
+                   "--out", os.path.join(root, "out")])
+    finally:
+        finetune.make_seg_finetune_step = make_step
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    total = {fn.__name__: fn.launches for fn in every}
+    ap_pass = {k: total[k] - in_steps[k] for k in total}
+    steps = got["steps"]
+    print(f"finetune-seg (Swin-L, {FT_HEIGHT}x{FT_WIDTH}, batch {FT_BATCH}, "
+          f"{FT_QUERIES} queries, 81-way head, {FT_INSTANCES} targets, "
+          f"12544 points): launches in the {len(steps)} steps {in_steps}; "
+          f"in the AP pass ({len(got['eval_ms'])} forwards) {ap_pass}")
+    check(len(steps) == FT_STEPS, f"{len(steps)} fine-tuning steps, not "
+          f"{FT_STEPS}")
+    check(all(_finite(m) for m in steps), f"fine-tuning metrics {steps}")
+    check(not any(in_steps.values()),
+          f"the fine-tuning steps launched kernels: {in_steps}")
+    forwards = len(got["eval_ms"])
+    want = {"window_attention": K4_A_FORWARD * forwards,
+            "ms_deform_attn_core": K5_A_FORWARD * forwards}
+    for k, n in ap_pass.items():
+        check(n == want.get(k, 0), f"AP pass: {k} launched {n} times, not "
+              f"{want.get(k, 0)}")
+    ms = [m["ms"] for m in steps]
+    copy_ms = [m["match_copy_ms"] for m in steps]
+    solve_ms = [m["match_solve_ms"] for m in steps]
+    print(f"finetune-seg step ms (host clock, synchronized) "
+          f"{', '.join(f'{t:.2f}' for t in ms)}; median after the first "
+          f"{statistics.median(ms[1:]):.2f}; the matching's host ms, after a "
+          f"synchronize, of the copy of 10 x {FT_BATCH} cost matrices "
+          f"{', '.join(f'{t:.2f}' for t in copy_ms)} and of their solve "
+          f"{', '.join(f'{t:.2f}' for t in solve_ms)}; peak memory "
+          f"{peak:.2f} GiB; AP pass ms a forward "
+          f"{', '.join(f'{t:.2f}' for t in got['eval_ms'])}; AP {got['AP']}; "
+          f"losses {[round(m['loss'], 4) for m in steps]}")
+    # the written .pkl loads strictly into the segmenter, finite
+    frozen = Mask2Former(device="cpu", init_weights=False)
+    load_mask2former_pkl(frozen, got["saved"][1])
+    check(all(torch.isfinite(v).all().item()
+              for v in frozen.state_dict().values()), "model.pkl not finite")
+    del frozen
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"finetune-seg phase wall time {time.perf_counter() - t_phase:.2f} s")
+    return {"finetune_seg_steps": in_steps, "finetune_seg_ap": ap_pass}
+
+
+def _compare_kernels(records: list):
+    """Context: while active, the segmenter's K4 / K5 calls also run their
+    plain versions on the same inputs and record (kernel, shape, max abs
+    error, largest plain value, route). The plain versions are not
+    counted; the kernels' own counts move as usual."""
+    import contextlib
+
+    from mal_tpu_torch.ops.cuda.deform_sample import (
+        ms_deform_attn_core_per_level, staged_channels)
+    from mal_tpu_torch.ops.cuda.window_attention import (
+        window_attention_reference)
+    from mal_tpu_torch.segment import msdeform, swin
+
+    k4, k5 = swin.window_attention, msdeform.ms_deform_attn_core
+
+    def k4_checked(qkv, table, mask, heads):
+        out = k4(qkv, table, mask, heads)
+        plain = window_attention_reference(qkv, table, mask, heads)
+        records.append(("window_attention", tuple(qkv.shape),
+                        (out - plain).abs().max().item(),
+                        plain.abs().max().item(), "tiled" if int(round(
+                            qkv.shape[1] ** 0.5)) == 12 else "loop"))
+        return out
+
+    def k5_checked(value, shapes, locs, aw):
+        out = k5(value, shapes, locs, aw)
+        plain = ms_deform_attn_core_per_level(value, shapes, locs, aw)
+        records.append(("ms_deform_attn_core", tuple(shapes),
+                        (out - plain).abs().max().item(),
+                        plain.abs().max().item(),
+                        "staged" if staged_channels(
+                            value.shape[1], value.shape[3],
+                            locs.shape[4]) else "gather"))
+        return out
+
+    @contextlib.contextmanager
+    def active():
+        swin.window_attention, msdeform.ms_deform_attn_core = (k4_checked,
+                                                               k5_checked)
+        try:
+            yield
+        finally:
+            swin.window_attention, msdeform.ms_deform_attn_core = k4, k5
+
+    return active()
+
+
+def seg_inference_phase(kernels: list, every: list) -> dict[str, dict]:
+    """The segmenter's inference surface at Swin-L (80 classes, 100
+    queries, seeded weights, batch 2 at 256x448): first K4 and K5 against
+    their plain versions inside one forward at each TTA scale (192x320,
+    256x448, 320x576: every K4 and K5 call of the forward, at most K4_ATOL
+    / K5_ATOL times the plain output's largest value, at least 1); then,
+    counted, semantic and panoptic inference from one forward (K4 = 24, K5
+    = 6) and `semantic_tta` at (0.75, 1, 1.25) with flip (6 forwards), each
+    variant timed."""
+    import torch
+
+    from mal_tpu_torch.ops.interp import resize_bilinear
+    from mal_tpu_torch.segment.inference import (panoptic_inference,
+                                                 semantic_inference,
+                                                 semantic_tta, snap32)
+    from mal_tpu_torch.segment.mask2former import Mask2Former
+
+    t_phase = time.perf_counter()
+    model = Mask2Former(generator=torch.Generator().manual_seed(2))
+    g = torch.Generator(device="cuda").manual_seed(9)
+    images = torch.rand((FT_BATCH, FT_HEIGHT, FT_WIDTH, 3), generator=g,
+                        device="cuda")
+    records: list = []
+    with torch.no_grad(), _compare_kernels(records):
+        for s in TTA_SCALES:
+            h, w = snap32(FT_HEIGHT * s), snap32(FT_WIDTH * s)
+            n0 = len(records)
+            model(resize_bilinear(images.permute(0, 3, 1, 2), h, w)
+                  .permute(0, 2, 3, 1).contiguous())
+            mine = records[n0:]
+            for name, atol in (("window_attention", K4_ATOL),
+                               ("ms_deform_attn_core", K5_ATOL)):
+                rows = [r for r in mine if r[0] == name]
+                worst = max(r[2] / max(1.0, r[3]) for r in rows)
+                print(f"{name} inside the {h}x{w} forward: {len(rows)} "
+                      f"calls at {sorted({r[1] for r in rows})} "
+                      f"({', '.join(sorted({r[4] for r in rows}))}); largest "
+                      f"error {max(r[2] for r in rows):.3e}, relative to "
+                      f"max(1, |plain|) {worst:.3e} (atol {atol})")
+                check(worst <= atol, f"{name} disagrees with its plain "
+                      f"version at {h}x{w}: {worst}")
+                for k in kernels:
+                    if k["name"] == name:
+                        k.setdefault("tta_max_abs_err", {})[f"{h}x{w}"] = max(
+                            r[2] for r in rows)
+
+    def counted(want_forwards: int, fn):
+        for f in every:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {f.__name__: f.launches for f in every}
+        want = {"window_attention": K4_A_FORWARD * want_forwards,
+                "ms_deform_attn_core": K5_A_FORWARD * want_forwards}
+        for k, n in got.items():
+            check(n == want.get(k, 0), f"inference: {k} launched {n} times,"
+                  f" not {want.get(k, 0)}")
+        return out, got
+
+    by_path = {}
+    thing = torch.zeros(80, dtype=torch.bool, device="cuda")
+    thing[:40] = True
+
+    def semantic_and_panoptic():
+        # random weights score every class ~1/81: keep every query
+        logits, masks = model(images)
+        return (semantic_inference(logits, masks),
+                panoptic_inference(logits, masks, thing,
+                                   object_mask_threshold=0.0))
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        (sem, pan), by_path["seg_semantic_panoptic"] = counted(
+            1, semantic_and_panoptic)
+        one_ms = 1e3 * (time.perf_counter() - t0)
+        check(sem.shape == (FT_BATCH, 80, FT_HEIGHT // 4, FT_WIDTH // 4)
+              and torch.isfinite(sem).all().item(), "semantic output")
+        check(pan.seg.shape == (FT_BATCH, FT_HEIGHT // 4, FT_WIDTH // 4)
+              and pan.seg.dtype == torch.int32
+              and int(pan.seg.max()) <= int(pan.ids.max()),
+              "panoptic output")
+        variant_ms = []
+
+        def timed(x):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = model(x)
+            torch.cuda.synchronize()
+            variant_ms.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        tta, by_path["seg_tta"] = counted(
+            2 * len(TTA_SCALES), lambda: semantic_tta(timed, images,
+                                                      TTA_SCALES, True))
+        check(tta.shape == (FT_BATCH, 80, FT_HEIGHT, FT_WIDTH)
+              and torch.isfinite(tta).all().item(), "TTA output")
+    names = [f"{snap32(FT_HEIGHT * s)}x{snap32(FT_WIDTH * s)}{f}"
+             for s in TTA_SCALES for f in ("", " flipped")]
+    print(f"segmenter inference (Swin-L, batch {FT_BATCH}): one forward with "
+          f"semantic + panoptic {one_ms:.2f} ms ({int(pan.valid.sum())} "
+          f"panoptic segments); TTA variants ms "
+          + ", ".join(f"{n} {t:.2f}" for n, t in zip(names, variant_ms))
+          + f"; launches {by_path}")
+    del model
+    print(f"segmenter inference phase wall time "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3,
@@ -2387,15 +2710,8 @@ def main(argv=None) -> int:
     small_dynamic_reference_phase()
     small_dualref_reference_phase()
 
-    from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
-        plane_sweep_diffs, plane_sweep_diffs_occ)
-    from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
-    from mal_tpu_torch.ops.cuda.swin_block import (swin_attn_fused,
-                                                   swin_mlp_fused)
-    from mal_tpu_torch.ops.cuda.window_attention import window_attention
-
-    every = [plane_sweep_diffs, plane_sweep_diffs_occ, swin_attn_fused,
-             swin_mlp_fused, window_attention, ms_deform_attn_core]
+    every = _counted_wrappers()
+    small_finetune_reference_phase(every)
     by_path = {"no_hint": main_path_phase(args.steps, args.profile)}
     by_path.update(options_phase(every))
     # the fp32 segmenter goes at once: a live one would add its 0.8 GiB to
@@ -2424,6 +2740,11 @@ def main(argv=None) -> int:
     by_path.update(dualref_path_phase(args.steps, args.profile, False, every))
     by_path.update(dualref_path_phase(args.steps, args.profile, True, every))
     by_path.update(cli_phase(args.profile, every))
+    t_seg = time.perf_counter()
+    by_path.update(finetune_phase(every))
+    by_path.update(seg_inference_phase(kernels, every))
+    print(f"fine-tuning and inference phases (10, 11) wall time "
+          f"{time.perf_counter() - t_seg:.2f} s")
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
                                  for path, counts in by_path.items()}

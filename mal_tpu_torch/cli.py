@@ -4,6 +4,7 @@
     python -m mal_tpu_torch.cli eval --ckpt ... --data_path ... --gt gt_depths.npz
     python -m mal_tpu_torch.cli export-pth --ckpt ... --out ...
     python -m mal_tpu_torch.cli export-seg --seg_pkl ... --out ... --data_path ...
+    python -m mal_tpu_torch.cli finetune-seg --images ... --annotations ... --out ...
 
 The flags are `mal_tpu.cli`'s, plus `--device` (default `cuda`, which raises
 when no card is present; `--device cpu` runs the plain PyTorch path).
@@ -14,7 +15,8 @@ Config field can be overridden with `--set key=value`. Split files resolve
 against the working directory (`splits/<split>/train_files.txt`, ...).
 `main` returns what the command made: the `Trainer` of `train`, the metrics
 of `eval`, the written paths of `export-pth`, the number of files
-`export-seg` wrote.
+`export-seg` wrote, the step metrics, mask AP and written paths of
+`finetune-seg`.
 """
 
 from __future__ import annotations
@@ -392,9 +394,100 @@ def _finish_eval(args, cfg, disps, median_scaling, scale_factor):
         median_scaling=median_scaling, pred_depth_scale_factor=scale_factor))
 
 
+def _sync(device) -> None:
+    """Wait for `device`'s work, so that the host clock times it."""
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+
+
 def cmd_finetune_seg(args):
-    raise NotImplementedError(
-        "finetune-seg (Mask2Former fine-tuning): not yet ported (ROADMAP M7)")
+    """Fine-tune the Mask2Former segmenter on a COCO-format dataset
+    (`mal_tpu/cli.py:419-493`; the reference trains it through detectron2's
+    `train_net.py`): AdamW steps on the deep-supervised set criterion with
+    the colour-correct RGB input, then mask AP on the training set with
+    the eval forward (kernels K4 / K5 on the card) under `no_grad`, then
+    with `--out` the model as `model.pkl` (detectron2's layout, which
+    `--seg_pkl` and `mal_tpu`'s converter read) and `seg_state.pt` (the
+    port's state dict, in place of `mal_tpu`'s flax msgpack). Returns
+    {"steps": [metrics with the step's ms and the matching's host ms],
+    "eval_ms": [ms a forward of the AP pass], "AP": ..., "saved": [paths]}."""
+    import time
+
+    import torch
+
+    from mal_tpu_torch.convert.mask2former import (export_mask2former_pkl,
+                                                   load_mask2former_pkl)
+    from mal_tpu_torch.device import resolve_device
+    from mal_tpu_torch.segment.coco import CocoInstanceDataset
+    from mal_tpu_torch.segment.criterion import CriterionConfig
+    from mal_tpu_torch.segment.evaluation import evaluate_instances
+    from mal_tpu_torch.segment.finetune import (make_optimizer,
+                                                make_seg_finetune_step)
+    from mal_tpu_torch.segment.mask2former import (Mask2Former,
+                                                   instance_inference)
+
+    device = resolve_device(args.device)
+    ds = CocoInstanceDataset(args.annotations, args.images, args.height,
+                             args.width, max_instances=args.max_instances)
+    model = Mask2Former(num_classes=ds.num_classes, swin_size=args.size,
+                        num_queries=args.num_queries, device=device,
+                        generator=torch.Generator().manual_seed(args.seed),
+                        init_weights=not args.seg_pkl, bgr_input=False
+                        ).requires_grad_(True)
+    if args.seg_pkl:
+        load_mask2former_pkl(model, args.seg_pkl)
+    step = make_seg_finetune_step(
+        model, make_optimizer(model, args.lr, args.weight_decay),
+        CriterionConfig(num_classes=ds.num_classes,
+                        num_points=args.num_points))
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+
+    history = []
+    for epoch in range(args.epochs):
+        for images, labels, masks, valid in ds.batches(
+                args.batch_size, seed=args.seed + epoch, device=device):
+            t0 = time.perf_counter()
+            m = step(images, labels, masks, valid, generator=generator)
+            m = {k: float(v) for k, v in m.items()}
+            _sync(device)
+            m["ms"] = 1e3 * (time.perf_counter() - t0)
+            history.append(m)
+            print(f"epoch {epoch} step {len(history)}: "
+                  + " ".join(f"{k}={v:.4f}" for k, v in m.items()),
+                  flush=True)
+
+    # mask AP on the training set (no val split in the minimal CLI)
+    preds, gts, eval_ms = [], [], []
+    with torch.no_grad():
+        for images, labels, masks, valid in ds.batches(
+                args.batch_size, shuffle=False, device=device):
+            t0 = time.perf_counter()
+            logits, pmasks = model(images)
+            inst = instance_inference(logits, pmasks, args.height, args.width,
+                                      args.max_instances)
+            _sync(device)
+            eval_ms.append(1e3 * (time.perf_counter() - t0))
+            for b in range(images.shape[0]):
+                preds.append({"masks": inst.masks[b].cpu().numpy(),
+                              "scores": inst.scores[b].cpu().numpy(),
+                              "classes": inst.classes[b].cpu().numpy()})
+                nb = int(valid[b].sum())
+                gts.append({"masks": masks[b, :nb].cpu().numpy(),
+                            "classes": labels[b, :nb].cpu().numpy()})
+    ap = evaluate_instances(preds, gts)
+    print(json.dumps({"AP": ap}, indent=2))
+
+    saved = []
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        saved.append(os.path.join(args.out, "seg_state.pt"))
+        torch.save(model.state_dict(), saved[0])
+        saved.append(export_mask2former_pkl(
+            model, os.path.join(args.out, "model.pkl")))
+        print("\n".join(f"saved: {p}" for p in saved))
+    return {"steps": history, "eval_ms": eval_ms, "AP": ap, "saved": saved}
 
 
 def cmd_export_seg(args):
@@ -523,7 +616,27 @@ def main(argv=None):
     device_flag(pp)
     pp.set_defaults(fn=cmd_export_pth)
 
-    pf = sub.add_parser("finetune-seg", help="not yet ported (ROADMAP M7)")
+    pf = sub.add_parser("finetune-seg", help="fine-tune the Mask2Former "
+                        "segmenter on a COCO-format dataset")
+    pf.add_argument("--images", required=True, help="image directory")
+    pf.add_argument("--annotations", required=True, help="COCO json")
+    pf.add_argument("--out", default=None,
+                    help="output dir for model.pkl and seg_state.pt")
+    pf.add_argument("--seg_pkl", default=None,
+                    help="initialize from detectron2 .pkl weights")
+    pf.add_argument("--size", default="tiny",
+                    choices=("tiny", "small", "base", "large"))
+    pf.add_argument("--height", type=int, default=256)
+    pf.add_argument("--width", type=int, default=448)
+    pf.add_argument("--epochs", type=int, default=1)
+    pf.add_argument("--batch_size", type=int, default=2)
+    pf.add_argument("--lr", type=float, default=1e-4)
+    pf.add_argument("--weight_decay", type=float, default=0.05)
+    pf.add_argument("--num_queries", type=int, default=100)
+    pf.add_argument("--max_instances", type=int, default=16)
+    pf.add_argument("--num_points", type=int, default=112 * 112)
+    pf.add_argument("--seed", type=int, default=0)
+    device_flag(pf)
     pf.set_defaults(fn=cmd_finetune_seg)
     px = sub.add_parser(
         "export-seg", help="precompute the temporal hint's current-frame "
@@ -549,10 +662,7 @@ def main(argv=None):
     device_flag(px)
     px.set_defaults(fn=cmd_export_seg)
 
-    # the refused command takes mal_tpu's flags without parsing them
-    args, extra = p.parse_known_args(argv)
-    if extra and args.fn is not cmd_finetune_seg:
-        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = p.parse_args(argv)
     return args.fn(args)
 
 

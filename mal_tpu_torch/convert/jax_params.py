@@ -306,19 +306,8 @@ def mask2former_state_dict(params: Mapping, size: str = "large"
 
 
 def load_jax_mask2former(model: torch.nn.Module, variables: Mapping) -> None:
-    """Fill `model` (a port `Mask2Former`) from `mal_tpu`'s flax variables
-    ({"params": ...}, numpy): every tensor assigned, every leaf consumed."""
-    sd = mask2former_state_dict(variables["params"], model.swin_size)
-    target = model.state_dict()
-    missing = sorted(set(target) - set(sd))
-    unused = sorted(set(sd) - set(target))
-    if missing or unused:
-        raise KeyError(f"port tensors without a flax leaf: {missing}; "
-                       f"flax leaves without a port tensor: {unused}")
-    with torch.no_grad():
-        for key, dst in target.items():
-            src = torch.tensor(sd[key])
-            if src.shape != dst.shape:
-                raise ValueError(f"{key}: flax {tuple(src.shape)} vs port "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(src)
+    """Fill `model` (a port `Mask2Former`, frozen or trainable, best built
+    with `init_weights=False`) from `mal_tpu`'s flax variables ({"params":
+    ...}, numpy): every tensor assigned, every leaf consumed."""
+    _load_strict(model, mask2former_state_dict(variables["params"],
+                                               model.swin_size))

@@ -1,9 +1,10 @@
-"""Mask2Former in eval mode and its instance inference (PyTorch).
+"""Mask2Former, its instance inference and its fine-tuning loss (PyTorch).
 
 Counterpart of `mal_tpu.segment.mask2former` (reference
 `mask2former/maskformer_model.py:21-380`): the frozen instance segmenter of
-the MAL temporal hint (`manydepth/trainer.py:350-357`). The module tree has
-detectron2's names (`backbone`, `sem_seg_head.pixel_decoder`,
+the MAL temporal hint (`manydepth/trainer.py:350-357`), and in train mode
+the model `finetune-seg` trains (`mask2former_train_loss`). The module tree
+has detectron2's names (`backbone`, `sem_seg_head.pixel_decoder`,
 `sem_seg_head.predictor`), so its state dict has the keys of the published
 checkpoints.
 """
@@ -17,6 +18,9 @@ import torch.nn as nn
 
 from mal_tpu_torch.device import resolve_device
 from mal_tpu_torch.ops.interp import resize_bilinear
+from mal_tpu_torch.segment.criterion import (CriterionConfig,
+                                             set_criterion_deep, weight_dict,
+                                             weighted_total)
 from mal_tpu_torch.segment.instances import Instances
 from mal_tpu_torch.segment.msdeform import MSDeformAttn
 from mal_tpu_torch.segment.pixel_decoder import MSDeformAttnPixelDecoder
@@ -32,13 +36,15 @@ _PIXEL_MEAN = (123.675, 116.28, 103.53)
 _PIXEL_STD = (58.395, 57.12, 57.375)
 
 
-def preprocess_images(images: Tensor) -> Tensor:
-    """The reference's segmenter preprocessing of (B, H, W, 3) frames in
+def preprocess_images(images: Tensor, bgr_input: bool = True) -> Tensor:
+    """The reference's segmenter preprocessing of (B, H, W, 3) RGB frames in
     [0, 1]: it feeds Mask2Former **BGR** frames (`manydepth/dyn_utils.py:
     176-178`) that detectron2 then normalises with RGB-ordered means
     (`maskformer_model.py:193-195`). The mismatch is the released models'
-    behaviour and is kept."""
-    images = images.flip(-1)
+    behaviour and is kept by default; `bgr_input=False` is the
+    colour-correct form fine-tuning uses (`mal_tpu/cli.py:436-437`)."""
+    if bgr_input:
+        images = images.flip(-1)
     mean = torch.tensor(_PIXEL_MEAN, device=images.device)
     std = torch.tensor(_PIXEL_STD, device=images.device)
     return (images * 255.0 - mean) / std
@@ -100,20 +106,31 @@ class Mask2Former(nn.Module):
     `bf16_backbone` (fast mode) runs the Swin blocks' and the pixel
     decoder's FFN Linears in bf16; `fused_swin` runs every Swin block as
     kernels K2 and K3 (`resolve_fused_swin` says when a configuration asks
-    for it). Neither changes the parameters or the state-dict keys."""
+    for it). Neither changes the parameters or the state-dict keys.
+    `bgr_input` as `preprocess_images`; `drop_path_rate` is the Swin's
+    stochastic depth in train mode (`mask2former/config.py:86`).
+
+    The model is built frozen (no parameter requires a gradient), as the
+    temporal hint uses it; `requires_grad_(True)` makes it trainable for
+    `mask2former_train_loss`. The forward's `train` argument alone picks
+    the route: no module here reads `self.training`."""
 
     def __init__(self, num_classes: int = 80, swin_size: str = "large",
                  num_queries: int = 100,
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None,
                  bf16_backbone: bool = False, fused_swin: bool = False,
-                 init_weights: bool = True):
+                 init_weights: bool = True, bgr_input: bool = True,
+                 drop_path_rate: float = 0.3):
         super().__init__()
         device = resolve_device(device)
         self.swin_size = swin_size
+        self.num_classes = num_classes
+        self.bgr_input = bgr_input
         embed = CONFIGS[swin_size][0]
         self.backbone = SwinTransformer(swin_size, bf16_compute=bf16_backbone,
-                                        fused_block=fused_swin)
+                                        fused_block=fused_swin,
+                                        drop_path_rate=drop_path_rate)
         self.sem_seg_head = nn.Module()
         self.sem_seg_head.pixel_decoder = MSDeformAttnPixelDecoder(
             {f"res{s + 2}": embed * 2 ** s for s in range(4)},
@@ -128,12 +145,23 @@ class Mask2Former(nn.Module):
         self.requires_grad_(False)   # frozen
         self.to(device)
 
-    def forward(self, images: Tensor) -> tuple[Tensor, Tensor]:
-        """images (B, H, W, 3) in [0, 1]. Returns (pred_logits (B, Q, K+1),
-        pred_masks (B, Q, H/4, W/4))."""
-        feats = self.backbone(preprocess_images(images))
-        mask_features, multi_scale = self.sem_seg_head.pixel_decoder(feats)
-        return self.sem_seg_head.predictor(multi_scale, mask_features)
+    def forward(self, images: Tensor, return_aux: bool = False,
+                train: bool = False,
+                generator: torch.Generator | None = None
+                ) -> tuple[Tensor, Tensor]:
+        """images (B, H, W, 3) in [0, 1] RGB. Returns (pred_logits (B, Q,
+        K+1), pred_masks (B, Q, H/4, W/4)); with `return_aux` every decoder
+        layer's, stacked (`MaskedTransformerDecoder`). `train=True` is the
+        training forward: the kernels' plain versions, through which
+        autograd runs, and Swin drop-path with keep-masks from `generator`;
+        `train=False` launches kernels K4 and K5 on CUDA tensors (K2 and K3
+        with `fused_swin`), which take no gradient."""
+        feats = self.backbone(preprocess_images(images, self.bgr_input),
+                              train, generator)
+        mask_features, multi_scale = self.sem_seg_head.pixel_decoder(feats,
+                                                                     train)
+        return self.sem_seg_head.predictor(multi_scale, mask_features,
+                                           return_aux)
 
 
 def instance_inference(pred_logits: Tensor, pred_masks: Tensor, out_h: int,
@@ -158,6 +186,33 @@ def instance_inference(pred_logits: Tensor, pred_masks: Tensor, out_h: int,
     final = top_scores * mask_score
     return Instances(masks=binary, classes=top_class.to(torch.int32),
                      scores=final, valid=torch.ones_like(final, dtype=torch.bool))
+
+
+def mask2former_train_loss(model: Mask2Former, images: Tensor,
+                           tgt_labels: Tensor, tgt_masks: Tensor,
+                           tgt_valid: Tensor,
+                           criterion_cfg: CriterionConfig | None = None,
+                           generator: torch.Generator | None = None,
+                           draws: list[dict] | None = None,
+                           timings: dict | None = None
+                           ) -> tuple[Tensor, dict]:
+    """The fine-tuning objective (`mal_tpu/segment/mask2former.py:140-162`,
+    the training path of `maskformer_model.py:198-216`): the training
+    forward with deep supervision, the Hungarian set losses of every layer
+    and their weighted sum. Returns (total, per-term dict).
+
+    images (B, H, W, 3) in [0, 1]; targets padded to a static T with
+    `tgt_valid` (`segment/criterion.py`). `generator` draws the drop-path
+    keep-masks and the criterion's points; `draws` injects the points
+    (`criterion.draw_points`); `timings` as `set_criterion_deep`."""
+    cfg = criterion_cfg or CriterionConfig(num_classes=model.num_classes)
+    logits, masks = model(images, return_aux=True, train=True,
+                          generator=generator)
+    losses = set_criterion_deep(logits, masks, tgt_labels, tgt_masks,
+                                tgt_valid, cfg, generator=generator,
+                                draws=draws, timings=timings)
+    total = weighted_total(losses, weight_dict(cfg, logits.shape[0] - 1))
+    return total, losses
 
 
 def make_seg_fn(model: Mask2Former, max_instances: int):

@@ -6,7 +6,10 @@ normalised to [0, 1] per level, sampled with zeros padding and
 align_corners=False, and weighted by softmax attention weights over
 (levels x points). The sampling core is kernel K5
 (`ops/cuda/deform_sample.py:ms_deform_attn_core`) on CUDA tensors and its
-plain per-level version on CPU tensors.
+plain per-level version on CPU tensors. In train mode (`train=True`,
+fine-tuning) the core is that plain version on every device, `mal_tpu`'s
+`ms_deform_attn_core_per_level` (`mal_tpu/segment/msdeform.py:27`), through
+which autograd runs: the kernel has no backward.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
+from mal_tpu_torch.ops.cuda.deform_sample import (
+    ms_deform_attn_core, ms_deform_attn_core_per_level)
 
 Tensor = torch.Tensor
 
@@ -42,10 +46,11 @@ class MSDeformAttn(nn.Module):
         self.output_proj = nn.Linear(D_MODEL, D_MODEL)
 
     def forward(self, query: Tensor, reference_points: Tensor,
-                value_flat: Tensor, spatial_shapes: list[tuple[int, int]]
-                ) -> Tensor:
+                value_flat: Tensor, spatial_shapes: list[tuple[int, int]],
+                train: bool = False) -> Tensor:
         """query (B, Lq, C); reference_points (B, Lq, L, 2) as (x, y) in
-        [0, 1]; value_flat (B, sum(HW), C)."""
+        [0, 1]; value_flat (B, sum(HW), C). `train` takes the plain core in
+        place of kernel K5."""
         B, Lq, C = query.shape
         H_, L, P = HEADS, LEVELS, POINTS
         value = self.value_proj(value_flat).reshape(B, -1, H_, C // H_)
@@ -57,6 +62,6 @@ class MSDeformAttn(nn.Module):
                              dtype=torch.float32, device=query.device)
         locs = (reference_points[:, :, None, :, None, :]
                 + offsets / sizes[None, None, None, :, None, :])
-        out = ms_deform_attn_core(value, spatial_shapes, locs.contiguous(),
-                                  attn.contiguous())
+        core = ms_deform_attn_core_per_level if train else ms_deform_attn_core
+        out = core(value, spatial_shapes, locs.contiguous(), attn.contiguous())
         return self.output_proj(out)

@@ -82,8 +82,9 @@ class DeformableEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(D_MODEL, eps=NORM_EPS)
 
     def forward(self, src: Tensor, pos: Tensor, reference_points: Tensor,
-                spatial_shapes) -> Tensor:
-        attn = self.self_attn(src + pos, reference_points, src, spatial_shapes)
+                spatial_shapes, train: bool = False) -> Tensor:
+        attn = self.self_attn(src + pos, reference_points, src, spatial_shapes,
+                              train)
         src = self.norm1(src + attn)
         dt = self.compute_dtype
         y = F.relu(precision.linear(self.linear1, src, dt))
@@ -114,9 +115,10 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.layer_1 = Conv2dNorm(d, d, 3, padding=1, bias=False)
         self.mask_features = nn.Conv2d(d, d, 1)
 
-    def forward(self, features: dict[str, Tensor]):
+    def forward(self, features: dict[str, Tensor], train: bool = False):
         """features {"res2".."res5"} (B, h, w, C). Returns (mask_features
-        (B, H/4, W/4, 256), [res5', res4', res3'] each (B, h, w, 256))."""
+        (B, H/4, W/4, 256), [res5', res4', res3'] each (B, h, w, 256)).
+        `train` takes K5's plain version (`msdeform.py`)."""
         srcs, shapes = [], []
         for proj, key in zip(self.input_proj, ("res5", "res4", "res3")):
             x = proj(features[key].permute(0, 3, 1, 2))
@@ -141,7 +143,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
         refs = torch.cat(refs)[None, :, None, :].expand(B, -1, LEVELS, 2)
 
         for layer in self.transformer.encoder.layers:
-            y = layer(y, pos_flat, refs, shapes)
+            y = layer(y, pos_flat, refs, shapes, train)
 
         parts = y.split([h * w for h, w in shapes], dim=1)
         outs = [p.reshape(B, h, w, D_MODEL)

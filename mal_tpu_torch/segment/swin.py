@@ -16,6 +16,15 @@ block has three forms, all on the same parameters:
   the stage is bf16 too (`swin.py:394-396`).
 On CPU tensors every kernel's wrapper takes its plain version.
 
+In train mode (`train=True`, fine-tuning) a block takes `mal_tpu`'s unfused
+route whatever its form: the attention core is K4's plain version, the
+einsum route of `mal_tpu/segment/swin.py:108-118` (the kernels have no
+backward; `mal_tpu` turns its fused block off in train mode too,
+`swin.py:206,386`), and both residual branches drop each sample with the
+block's stochastic-depth rate (`swin.py:193-198`), the rates linearly
+spaced from 0 to `drop_path_rate` over all blocks (`swin.py:367`). The
+keep-masks come from an explicit generator.
+
 Module and parameter names are detectron2's `D2SwinTransformer`
 (`mask2former/modeling/backbone/swin.py`), so the state dict has the keys of
 the published checkpoints; every LayerNorm uses flax's eps of 1e-6, as
@@ -24,14 +33,15 @@ the published checkpoints; every LayerNorm uses flax's eps of 1e-6, as
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from mal_tpu_torch.ops import precision
 from mal_tpu_torch.ops.cuda.swin_block import swin_attn_fused, swin_mlp_fused
-from mal_tpu_torch.ops.cuda.window_attention import (relative_position_index,
-                                                     window_attention)
+from mal_tpu_torch.ops.cuda.window_attention import (
+    relative_position_index, window_attention, window_attention_reference)
 
 Tensor = torch.Tensor
 
@@ -42,6 +52,8 @@ CONFIGS = {
     # embed_dim, depths, num_heads, window; "large" is the temporal hint's
     # segmenter, "tiny" the small one the tests and references build
     "tiny": (96, (2, 2, 6, 2), (3, 6, 12, 24), 7),
+    "small": (96, (2, 2, 18, 2), (3, 6, 12, 24), 7),
+    "base": (128, (2, 2, 18, 2), (4, 8, 16, 32), 12),
     "large": (192, (2, 2, 18, 2), (6, 12, 24, 48), 12),
 }
 
@@ -90,12 +102,15 @@ class WindowAttention(nn.Module):
         self.register_buffer("relative_position_index", torch.from_numpy(
             relative_position_index(window_size)))
 
-    def forward(self, x: Tensor, mask: Tensor | None = None) -> Tensor:
-        """x (nW, N, C) windows; mask (nm, N, N) or None."""
+    def forward(self, x: Tensor, mask: Tensor | None = None,
+                train: bool = False) -> Tensor:
+        """x (nW, N, C) windows; mask (nm, N, N) or None. `train` takes the
+        plain core, through which autograd runs, in place of kernel K4."""
         dt = self.compute_dtype
         qkv = precision.linear(self.qkv, x, dt)
-        out = window_attention(qkv.float(), self.relative_position_bias_table,
-                               mask, self.num_heads)
+        attend = window_attention_reference if train else window_attention
+        out = attend(qkv.float(), self.relative_position_bias_table, mask,
+                     self.num_heads)
         return precision.linear(self.proj, out, dt).to(x.dtype)
 
 
@@ -114,48 +129,68 @@ class Mlp(nn.Module):
         return precision.linear(self.fc2, y, dt).to(x.dtype)
 
 
+def drop_path(y: Tensor, rate: float,
+              generator: torch.Generator | None) -> Tensor:
+    """Stochastic depth (timm's DropPath, `mal_tpu/segment/swin.py:
+    193-198`): each sample's branch kept with probability 1 - `rate` and
+    then scaled by 1 / (1 - rate); one uniform draw a sample from
+    `generator`, on `y`'s device."""
+    if rate == 0.0:
+        return y
+    keep = 1.0 - rate
+    u = torch.rand((y.shape[0],) + (1,) * (y.dim() - 1), generator=generator,
+                   device=y.device)
+    return y * (u < keep).to(y.dtype) / keep
+
+
 class SwinBlock(nn.Module):
     """One Swin block; `shifted` selects the SW-MSA form, `compute_dtype`
-    (None or bfloat16) the type of its Linears, `fused` the K2 + K3 form."""
+    (None or bfloat16) the type of its Linears, `fused` the K2 + K3 form,
+    `drop_rate` its stochastic-depth rate in train mode."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shifted: bool, compute_dtype: torch.dtype | None = None,
-                 fused: bool = False):
+                 fused: bool = False, drop_rate: float = 0.0):
         super().__init__()
         self.window_size = window_size
         self.shifted = shifted
         self.compute_dtype = compute_dtype
         self.fused = fused
+        self.drop_rate = drop_rate
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = WindowAttention(dim, num_heads, window_size, compute_dtype)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, MLP_RATIO * dim, compute_dtype)
 
     def forward(self, x: Tensor, mask: Tensor | None, shift: int,
-                valid: Tensor | None = None) -> Tensor:
+                valid: Tensor | None = None, train: bool = False,
+                generator: torch.Generator | None = None) -> Tensor:
         """x (B, H, W, C). Pads to window multiples *after* norm1, as the
         reference does: the pad tokens are zero vectors that still act as
         keys. `mask`, `shift` and `valid` come from the stage: the roll
         applies only when the padded map is larger than one window, and
         `valid` (Hp, Wp), 1 on real tokens, is what the fused form zeroes
-        the pad tokens by."""
+        the pad tokens by. `train` takes the unfused route with the plain
+        attention core and drop-path, its keep-masks from `generator`."""
         B, H, W, C = x.shape
         ws = self.window_size
         Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
         roll = shift if self.shifted else 0
-        if self.fused:
+        if self.fused and not train:
             return self._forward_fused(x, mask if roll else None, roll, valid)
+        rate = self.drop_rate if train else 0.0
         y = self.norm1(x)
         if (Hp, Wp) != (H, W):
             y = F.pad(y, (0, 0, 0, Wp - W, 0, Hp - H))
         if roll:
             y = torch.roll(y, (-roll, -roll), dims=(1, 2))
-        wins = self.attn(window_partition(y, ws), mask if roll else None)
+        wins = self.attn(window_partition(y, ws), mask if roll else None,
+                         train)
         y = window_reverse(wins, ws, Hp, Wp)
         if roll:
             y = torch.roll(y, (roll, roll), dims=(1, 2))
-        x = x + y[:, :H, :W]
-        return x + self.mlp(self.norm2(x))
+        x = x + drop_path(y[:, :H, :W], rate, generator)
+        return x + drop_path(self.mlp(self.norm2(x)), rate, generator)
 
     def _forward_fused(self, x: Tensor, mask: Tensor | None, roll: int,
                        valid: Tensor) -> Tensor:
@@ -194,30 +229,33 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  downsample: bool, compute_dtype: torch.dtype | None = None,
-                 fused: bool = False):
+                 fused: bool = False, drop_rates: tuple = ()):
         super().__init__()
         self.window_size = window_size
         self.fused = fused
+        rates = drop_rates or (0.0,) * depth
         self.blocks = nn.ModuleList([
             SwinBlock(dim, num_heads, window_size, shifted=b % 2 == 1,
-                      compute_dtype=compute_dtype, fused=fused)
+                      compute_dtype=compute_dtype, fused=fused,
+                      drop_rate=float(rates[b]))
             for b in range(depth)])
         # the merging reduces in bf16 only on a bf16 stream (`swin.py:407-408`)
         self.downsample = (PatchMerging(dim, compute_dtype if fused else None)
                            if downsample else None)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> Tensor:
         ws = self.window_size
         H, W = x.shape[1:3]
         Hp, Wp = -(-H // ws) * ws, -(-W // ws) * ws
         shift = ws // 2 if min(Hp, Wp) > ws else 0     # `swin.py:203`
         mask = shift_mask(Hp, Wp, ws, shift, x.device) if shift else None
         valid = None
-        if self.fused:
+        if self.fused and not train:
             valid = F.pad(torch.ones((H, W), device=x.device),
                           (0, Wp - W, 0, Hp - H))
         for block in self.blocks:
-            x = block(x, mask, shift, valid)
+            x = block(x, mask, shift, valid, train, generator)
         return x
 
 
@@ -228,14 +266,14 @@ class PatchMerging(nn.Module):
         self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
         # the official channel order [(0,0), (1,0), (0,1), (1,1)]
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
                        x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
         # the norm is fp32 whatever the stream's type, as flax's LayerNorm
-        # with fp32 parameters returns it
+        # with fp32 parameters returns it; train mode has no bf16 stream
         return precision.linear(self.reduction, self.norm(x.float()),
-                                self.compute_dtype)
+                                None if train else self.compute_dtype)
 
 
 class PatchEmbed(nn.Module):
@@ -254,37 +292,44 @@ class SwinTransformer(nn.Module):
 
     `bf16_compute` runs every Linear of the blocks in bf16 (parameters stay
     fp32); `fused_block` runs each block as kernels K2 and K3, and with both
-    on the residual stream between the kernels is bf16 as well. The
-    per-stage output norms are fp32 in every mode (`swin.py:404-405`).
+    on the residual stream between the kernels is bf16 as well (not in
+    train mode, which takes the unfused blocks). The per-stage output norms
+    are fp32 in every mode (`swin.py:404-405`). `drop_path_rate` is the last
+    block's stochastic-depth rate in train mode.
     """
 
     def __init__(self, size: str = "large", bf16_compute: bool = False,
-                 fused_block: bool = False):
+                 fused_block: bool = False, drop_path_rate: float = 0.0):
         super().__init__()
         embed_dim, depths, heads, ws = CONFIGS[size]
         cdt = torch.bfloat16 if bf16_compute else None
         self.bf16_stream = bf16_compute and fused_block
         self.patch_embed = PatchEmbed(embed_dim)
+        dpr = np.linspace(0.0, drop_path_rate, sum(depths))
+        starts = np.cumsum((0,) + depths)
         self.layers = nn.ModuleList([
             BasicLayer(embed_dim * 2 ** s, depths[s], heads[s], ws,
-                       downsample=s < 3, compute_dtype=cdt, fused=fused_block)
+                       downsample=s < 3, compute_dtype=cdt, fused=fused_block,
+                       drop_rates=tuple(dpr[starts[s]:starts[s + 1]]))
             for s in range(4)])
         for s in range(4):
             self.add_module(f"norm{s}", nn.LayerNorm(embed_dim * 2 ** s,
                                                      eps=LN_EPS))
 
-    def forward(self, x: Tensor) -> dict[str, Tensor]:
-        """x (B, H, W, 3), H and W multiples of 32."""
+    def forward(self, x: Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> dict[str, Tensor]:
+        """x (B, H, W, 3), H and W multiples of 32; `train` and `generator`
+        as `SwinBlock` takes them."""
         if x.shape[1] % 32 or x.shape[2] % 32:
             raise ValueError(f"image {tuple(x.shape[1:3])} is not a multiple "
                              f"of 32")
         y = self.patch_embed(x)
         outs = {}
         for s, layer in enumerate(self.layers):
-            if self.bf16_stream:
+            if self.bf16_stream and not train:
                 y = y.to(torch.bfloat16)
-            y = layer(y)
+            y = layer(y, train, generator)
             outs[f"res{s + 2}"] = getattr(self, f"norm{s}")(y.float())
             if layer.downsample is not None:
-                y = layer.downsample(y)
+                y = layer.downsample(y, train)
         return outs

@@ -9,9 +9,10 @@ masked, additive -1e4, a query that masks everything unmasked),
 self-attention, FFN, and the shared class and mask-embed heads. Names are
 detectron2's; LayerNorms use flax's eps of 1e-6.
 
-Only the last prediction's full-resolution masks are computed: the eval
-forward returns only those, and each layer's attention mask comes from the
-mask features resized to its level, as in `mal_tpu` (`:103-135`).
+Each layer's attention mask comes from the mask features resized to its
+level, as in `mal_tpu` (`:103-135`). The eval forward computes only the
+last prediction's full-resolution masks; `return_aux` (deep supervision,
+`mal_tpu/segment/transformer_decoder.py:162-164`) computes every layer's.
 """
 
 from __future__ import annotations
@@ -105,10 +106,13 @@ class MaskedTransformerDecoder(nn.Module):
         self.class_embed = nn.Linear(HIDDEN, num_classes + 1)
         self.mask_embed = MLP()
 
-    def forward(self, multi_scale: list[Tensor], mask_features: Tensor):
+    def forward(self, multi_scale: list[Tensor], mask_features: Tensor,
+                return_aux: bool = False):
         """multi_scale [res5', res4', res3'], each (B, h, w, C);
         mask_features (B, H/4, W/4, 256). Returns (pred_logits
-        (B, Q, K+1), pred_masks (B, Q, H/4, W/4))."""
+        (B, Q, K+1), pred_masks (B, Q, H/4, W/4)); with `return_aux` the
+        predictions of the queries and of every layer stacked, (L+1, B, Q,
+        K+1) and (L+1, B, Q, H/4, W/4), the last the final one."""
         B, C = mask_features.shape[0], HIDDEN
         dev = mask_features.device
         srcs, poss, shapes = [], [], []
@@ -137,6 +141,7 @@ class MaskedTransformerDecoder(nn.Module):
             return self.class_embed(dec_out), mask_embed, attn_mask
 
         logits, mask_embed, attn_mask = predict(output, *shapes[0])
+        aux = [(logits, mask_embed)]
         layers = zip(self.transformer_cross_attention_layers,
                      self.transformer_self_attention_layers,
                      self.transformer_ffn_layers)
@@ -150,5 +155,10 @@ class MaskedTransformerDecoder(nn.Module):
             output = fl.norm(output + y)
             logits, mask_embed, attn_mask = predict(output,
                                                     *shapes[(l + 1) % 3])
+            aux.append((logits, mask_embed))
+        if return_aux:
+            return (torch.stack([a[0] for a in aux]),
+                    torch.stack([torch.einsum("bqc,bhwc->bqhw", a[1],
+                                              mask_features) for a in aux]))
         masks = torch.einsum("bqc,bhwc->bqhw", mask_embed, mask_features)
         return logits, masks

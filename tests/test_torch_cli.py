@@ -2,7 +2,9 @@
 `mal_tpu_torch.train.trainer`) on the CPU, on a fake KITTI tree at 64x96,
 batch 2, 16 depth bins: train, validate and save; evaluate the checkpoint
 and its reference-layout export to the same metrics; resume; the trainer's
-first loss against the bare training step; and the refusals.
+first loss against the bare training step; the refusals; and
+`finetune-seg` on a fake COCO tree at Swin-T, whose `model.pkl` both
+packages read.
 """
 
 import contextlib
@@ -175,7 +177,6 @@ def test_entry_points_need_the_card_unless_asked(tree, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["finetune-seg", "--images", "x", "--annotations", "y"], "M7"),
     # the depth axis is refused before any process joins a group
     (["train", "--data_path", "kitti", "--coordinator", "h:1", "--set",
       "num_depth_shards=2"], "M6"),
@@ -187,10 +188,7 @@ def test_entry_points_need_the_card_unless_asked(tree, monkeypatch):
       "num_depth_shards=2"], "M6"),
     # one process: mal_tpu's device mesh, run as one process per card
     (["train", "--data_path", "kitti", "--set", "num_data_shards=2"], "M6"),
-    (["train", "--data_path", "kitti", "--set", "num_depth_shards=2"], "M6"),
-    # online_doj now trains (tests/test_torch_doj.py); fine-tuning waits
-    (["finetune-seg", "--seg_pkl", "x.pkl", "--set", "online_doj=True"],
-     "M7")])
+    (["train", "--data_path", "kitti", "--set", "num_depth_shards=2"], "M6")])
 def test_refusals_name_the_roadmap_item(tree, argv, match):
     with pytest.raises(NotImplementedError, match=match):
         main(argv + ["--device", "cpu"])
@@ -201,3 +199,55 @@ def test_temporal_needs_pretrained_segmenter_weights(tree):
     with pytest.raises(ValueError, match="Mask2Former"):
         main(["train", "--data_path", paths["data_path"], "--device", "cpu",
               "--set", *TRAIN, "temporal=True"])
+
+
+def test_finetune_seg(tmp_path, capsys, monkeypatch):
+    """`finetune-seg` with `mal_tpu`'s flags at Swin-T, 64x96, 8 queries, 2
+    steps: finite losses, mask AP printed, `model.pkl` read back by the
+    port and by `mal_tpu`'s converter to the same arrays, `seg_state.pt` to
+    the same model; `--seg_pkl` starts from it (no step: the same AP); and
+    without `--device cpu` it needs the card."""
+    from mal_tpu.convert.mask2former import convert_mask2former_pkl
+    from mal_tpu_torch.convert.jax_params import mask2former_state_dict
+    from mal_tpu_torch.convert.mask2former import load_mask2former_pkl
+    from mal_tpu_torch.data.synthetic import write_fake_coco
+    from mal_tpu_torch.segment.mask2former import Mask2Former
+
+    paths = write_fake_coco(str(tmp_path), n_images=4, n_categories=5,
+                            size=(160, 120))
+    argv = ["finetune-seg", "--images", paths["images"], "--annotations",
+            paths["annotations"], "--size", "tiny", "--height", "64",
+            "--width", "96", "--num_queries", "8", "--num_points", "64",
+            "--max_instances", "4", "--lr", "1e-3"]
+    out = str(tmp_path / "out")
+    got = main(argv + ["--out", out, "--device", "cpu"])
+    assert len(got["steps"]) == 2
+    for m in got["steps"]:
+        assert set(m) == {"loss", "loss_ce", "loss_mask", "loss_dice", "ms",
+                          "match_copy_ms", "match_solve_ms"}
+        assert all(math.isfinite(v) for v in m.values()), m
+    printed = capsys.readouterr().out
+    assert '"AP"' in printed and "step 2:" in printed
+    assert set(got["AP"]) == {"AP", "AP50", "AP75"}
+    assert got["saved"] == [os.path.join(out, "seg_state.pt"),
+                            os.path.join(out, "model.pkl")]
+
+    model = Mask2Former(num_classes=5, swin_size="tiny", num_queries=8,
+                        device="cpu", init_weights=False)
+    load_mask2former_pkl(model, got["saved"][1])
+    jax_sd = mask2former_state_dict(
+        convert_mask2former_pkl(got["saved"][1], size="tiny")["params"],
+        "tiny")
+    state = torch.load(got["saved"][0])
+    assert set(jax_sd) == set(state) == set(model.state_dict())
+    for k, v in model.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jax_sd[k]),
+                                      err_msg=k)
+        assert torch.equal(v, state[k]), k
+
+    again = main(argv + ["--seg_pkl", got["saved"][1], "--epochs", "0",
+                         "--device", "cpu"])
+    assert again["steps"] == [] and again["AP"] == got["AP"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(argv)

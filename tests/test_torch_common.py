@@ -201,3 +201,25 @@ def random_tree(shapes, seed: int = 0):
         return a.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def jax_criterion_draws(key, layers: int, batch: int, targets: int,
+                        num_points: int) -> list[dict]:
+    """The random points `mal_tpu`'s `set_criterion_deep(key, ...)` draws
+    (`mal_tpu/segment/criterion.py:154,190,260`: a key a layer, split into
+    the matching's and the losses', the latter split into the oversampled
+    and the random points), as the port's injected `draws`."""
+    from mal_tpu_torch.segment.criterion import CriterionConfig, point_counts
+
+    n_over, _, n_rand = point_counts(CriterionConfig(num_points=num_points))
+    N = batch * targets
+    out = []
+    for k in jax.random.split(key, layers):
+        km, kl = jax.random.split(k)
+        k1, k2 = jax.random.split(kl)
+        out.append({name: torch.from_numpy(np.array(jax.random.uniform(
+            kk, shape))) for name, kk, shape in (
+                ("match", km, (batch, num_points, 2)),
+                ("oversample", k1, (N, n_over, 2)),
+                ("rand", k2, (N, n_rand, 2)))})
+    return out

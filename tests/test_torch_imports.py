@@ -1,5 +1,6 @@
 """The port stands alone: no module of `mal_tpu_torch` (nor chip_smoke.py)
-imports JAX, flax, optax or the JAX package `mal_tpu`."""
+imports JAX, flax, optax or the JAX package `mal_tpu`, nor matplotlib,
+which the card's machine lacks."""
 
 import ast
 import os
@@ -10,7 +11,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "mal_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "mal_tpu", "matplotlib")
 SOURCES = sorted((ROOT / "mal_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -37,7 +38,7 @@ def test_importing_every_module_loads_no_mal_tpu():
         "import mal_tpu_torch\n"
         "for m in pkgutil.walk_packages(mal_tpu_torch.__path__, 'mal_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('mal_tpu', 'jax', 'flax', 'optax')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('mal_tpu', 'jax', 'flax', 'optax', 'matplotlib')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
