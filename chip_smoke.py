@@ -92,6 +92,20 @@ Phases, each of which must pass or the script exits non-zero:
    step ms, each step after a barrier; then one more step with a barrier
    before each collective: the collectives, the time in them and the
    wait for the other ranks);
+8e. the depth axis: `Config()`'s one-process step run alone, then two
+   gloo ranks on cuda:0 as one depth row (1 data x 2 depth,
+   `num_depth_shards=2`; on a machine whose card count is even and divides
+   24, one NCCL rank a card as (cards / 2) data x 2 depth), each row
+   holding its shard of the global batch of 12 and splitting the volume's
+   96 planes, 2 steps from the same state and draws (phase 8d's bounds;
+   the ranks equal bit for bit; K1 once a step on each rank, on its 48
+   planes: its share of the volume holds cost on those planes and 0
+   elsewhere before the gather; every other kernel 0; each rank's step ms
+   and one step's gather ms); one DynamicDepth step (its benchmark
+   configuration at a global batch of 12) in the same layout, the depth
+   ranks replicas (K6 once on each; loss and state against one process);
+   and on rank 0 K1 on its 48-plane share against its plain version,
+   timed;
 9. the CLI (`mal_tpu_torch.cli.main` only), in a fake KITTI tree of seeded
    1242x375 JPEGs under `build/chip_smoke_cli` with its own `splits/`:
    `train --preset kitti` at the recipe in fast mode (3 steps, one
@@ -128,8 +142,16 @@ Phases, each of which must pass or the script exits non-zero:
    versions inside one forward at each TTA scale (192x320, 256x448,
    320x576), then semantic and panoptic output from one forward and
    `semantic_tta` at (0.75, 1, 1.25) with flip, each variant timed (K4 =
-   24, K5 = 6 a forward).
-Phases 5 to 11 set every kernel's launch count to 0 just before each path
+   24, K5 = 6 a forward);
+12. MaskFormer v1 at `mal_tpu`'s defaults (Swin-T, 100 queries, 80
+   classes, fp32), batch 2 at 256x448: K4 at Swin-T's four stage shapes
+   beside SDPA (with the sum over a forward's 12 launches), every K4 call
+   of one forward against its plain version at phase 11's tolerance, then
+   counted a forward (K4 = 12, every other kernel 0) with semantic and
+   panoptic inference on its output, and `PerPixelBaselineHead` with the
+   FPN and with the transformer-encoder pixel decoder on the backbone's
+   features (no kernel), each forward timed.
+Phases 5 to 12 set every kernel's launch count to 0 just before each path
 (in phase 5b each option, in 7b each step, in 8b the frozen step, in phase
 9 each command) and
 read the counts just after; each kernel must have launched exactly as
@@ -313,31 +335,33 @@ def plane_sweep_report(tag: str, routes, M, t, bins, h: int, w: int, C: int,
         print(f"  {line}")
 
 
-def k1_phase() -> dict:
+def _k1_measure(tag: str, cur, lookup, M, t, bins) -> dict:
+    """K1 on these inputs against its plain version (the route counts
+    against `plane_sweep_routes`, the error, the flipped border decisions),
+    then its time, the plain version's and the bound."""
     import torch
 
     from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
         plane_sweep_diffs, plane_sweep_diffs_reference)
     from mal_tpu_torch.utils.profiling import cuda_time_ms
 
-    cur, lookup, M, t, bins = k1_inputs()
     BF, h, w, C = cur.shape
     D = bins.shape[0]
     routes = torch.zeros(3, dtype=torch.int32, device="cuda")
     out = plane_sweep_diffs(cur, lookup, M, t, bins, routes=routes)
     torch.cuda.synchronize()
-    plane_sweep_report("K1", routes, M, t, bins, h, w, C, occ=False)
+    plane_sweep_report(tag, routes, M, t, bins, h, w, C, occ=False)
     plain = plane_sweep_diffs_reference(cur, lookup, M, t, bins)
     err = (out - plain).abs().max().item()
     flips = ((out == 0) != (plain == 0)).sum().item()
     active = (plain != 0).sum().item()
-    print(f"K1 plane_sweep_diffs at BF={BF} D={D} h={h} w={w} C={C}: "
+    print(f"{tag} plane_sweep_diffs at BF={BF} D={D} h={h} w={w} C={C}: "
           f"max_abs_err={err:.3e} (atol {K1_ATOL}) flips={flips} "
           f"(max {K1_MAX_FLIPS}) active samples={active} of {out.numel()}")
-    check(torch.isfinite(out).all().item(), "K1 output not finite")
-    check(err <= K1_ATOL, f"K1 disagrees with its plain version: {err}")
-    check(flips <= K1_MAX_FLIPS, f"K1 flipped {flips} border decisions")
-    check(active > 0, "K1 check sampled nothing")
+    check(torch.isfinite(out).all().item(), f"{tag} output not finite")
+    check(err <= K1_ATOL, f"{tag} disagrees with its plain version: {err}")
+    check(flips <= K1_MAX_FLIPS, f"{tag} flipped {flips} border decisions")
+    check(active > 0, f"{tag} check sampled nothing")
 
     ms = cuda_time_ms(lambda: plane_sweep_diffs(cur, lookup, M, t, bins), 50)
     plain_ms = cuda_time_ms(
@@ -351,16 +375,22 @@ def k1_phase() -> dict:
     n_ops = 10 * out.numel() + active * (15 + 9 * C)
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_FP32_FLOPS * 1e3
-    print(f"K1 time {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+    print(f"{tag} time {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
           f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes / 1e6:.1f} MB -> "
           f"{bytes_ms:.4f} ms, {n_ops / 1e9:.2f} GFLOP -> {ops_ms:.4f} ms)")
+    return {"planes": D, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def k1_phase() -> dict:
+    got = _k1_measure("K1", *k1_inputs())
     return {"name": "plane_sweep_diffs", "route": "cuda",
             "source": "mal_tpu_torch/csrc/plane_sweep.cu",
             "replaces": "mal_tpu/ops/pallas/cost_volume_kernel.py:123",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None}
+            "max_abs_err": got["max_abs_err"], "ms": got["ms"],
+            "plain_ms": got["plain_ms"], "bound_ms": got["bound_ms"],
+            "bound_by": got["bound_by"], "library_ms": None}
 
 
 def k6_phase() -> dict:
@@ -531,10 +561,13 @@ def small_dynamic_reference_phase() -> None:
     check(d_err <= 1e-3, "GPU eval disparity != CPU eval disparity")
 
 
-def k4_phase() -> dict:
-    """K4 at the four stages of Swin-L in fp32 (stages 0 and 1 shifted with
-    their masks, and also timed without them), beside fp32 SDPA, with the
-    time of one fp32 hint step's launches."""
+def _k4_stage_rows(label: str, stages: dict, ws: int, images: int,
+                   launches: dict) -> tuple[list[dict], dict]:
+    """K4 at each of `stages` (stage -> (padded map, real map, C, heads,
+    whether its odd blocks shift)) for `images` images of window `ws`, in
+    fp32, against its plain version, timed beside fp32 SDPA (the shifted
+    stages with their masks, and also without them); with the sum over
+    `launches` (stage -> launches) of each time."""
     import torch
     import torch.nn.functional as F
 
@@ -543,11 +576,10 @@ def k4_phase() -> dict:
     from mal_tpu_torch.segment.swin import shift_mask
     from mal_tpu_torch.utils.profiling import cuda_time_ms
 
-    images, ws = 12, SWIN_WINDOW
     N = ws * ws
     idx = torch.from_numpy(relative_position_index(ws)).cuda()
     shapes = []
-    for stage, ((Hp, Wp), _, C, heads, shifted) in SWIN_L_STAGES.items():
+    for stage, ((Hp, Wp), _, C, heads, shifted) in stages.items():
         g = torch.Generator(device="cuda").manual_seed(4 + stage)
         nm = (Hp // ws) * (Wp // ws)
         nW = images * nm
@@ -559,12 +591,13 @@ def k4_phase() -> dict:
         torch.cuda.synchronize()
         plain = window_attention_reference(qkv, table, mask, heads)
         err = (out - plain).abs().max().item()
-        print(f"K4 window_attention stage {stage} at nW={nW} heads={heads} "
-              f"N={N} d=32{f' nm={nm}' if shifted else ', no mask'}: "
+        print(f"K4 window_attention {label} stage {stage} at nW={nW} "
+              f"heads={heads} N={N} d={C // heads}"
+              f"{f' nm={nm}' if shifted else ', no mask'}: "
               f"max_abs_err={err:.3e} (atol {K4_ATOL})")
         check(torch.isfinite(out).all().item(), "K4 output not finite")
         check(err <= K4_ATOL, f"K4 disagrees with its plain version at "
-              f"stage {stage}: {err}")
+              f"{label} stage {stage}: {err}")
         del plain
 
         ms = cuda_time_ms(lambda: window_attention(qkv, table, mask, heads),
@@ -573,7 +606,8 @@ def k4_phase() -> dict:
             lambda: window_attention_reference(qkv, table, mask, heads), 3, 1)
         # the library yardstick: one SDPA call on (nW, heads, N, d) q, k, v
         # with the bias (and mask) added into one (nW, heads, N, N) mask
-        q, k, v = (t.reshape(nW, N, heads, 32).transpose(1, 2).contiguous()
+        d = C // heads
+        q, k, v = (t.reshape(nW, N, heads, d).transpose(1, 2).contiguous()
                    for t in qkv.reshape(nW, N, 3, C).unbind(2))
         bias = table[idx.reshape(-1)].reshape(N, N, heads).permute(2, 0, 1)
         per_window = bias[None] if mask is None else bias[None] + mask[:, None]
@@ -594,18 +628,29 @@ def k4_phase() -> dict:
                        + (0 if mask is None else mask.numel()))
         # operations: q k^T and p v (2 N^2 d multiply-adds each), and ~5 per
         # score for bias, mask, max, exp, sum and the division
-        n_ops = nW * heads * (4 * N * N * 32 + 5 * N * N)
+        n_ops = nW * heads * (4 * N * N * d + 5 * N * N)
         bound = _bound(n_bytes, n_ops, PEAK_FP32_FLOPS)
-        print(f"K4 stage {stage}: {ms:.4f} ms{text}, plain {plain_ms:.4f} ms,"
-              f" SDPA {library_ms:.4f} ms (max diff {lib_err.item():.2e}); "
-              f"{n_ops / ms / 1e9:.1f} TFLOP/s; {bound['text']}")
-        shapes.append({"stage": stage, "max_abs_err": err, "ms": ms,
+        print(f"K4 {label} stage {stage}: {ms:.4f} ms{text}, plain "
+              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max diff "
+              f"{lib_err.item():.2e}); {n_ops / ms / 1e9:.1f} TFLOP/s; "
+              f"{bound['text']}")
+        shapes.append({"stage": stage, "nW": nW, "heads": heads, "N": N,
+                       "max_abs_err": err, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": library_ms,
                        "bound_ms": bound["bound_ms"],
                        "bound_by": bound["bound_by"]})
         del qkv, out
-    per_step = {key: sum(SWIN_L_LAUNCHES[r["stage"]] * r[key] for r in shapes)
-                for key in ("ms", "library_ms", "bound_ms")}
+    total = {key: sum(launches[r["stage"]] * r[key] for r in shapes)
+             for key in ("ms", "library_ms", "bound_ms")}
+    return shapes, total
+
+
+def k4_phase() -> dict:
+    """K4 at the four stages of Swin-L in fp32 (stages 0 and 1 shifted with
+    their masks, and also timed without them), beside fp32 SDPA, with the
+    time of one fp32 hint step's launches."""
+    shapes, per_step = _k4_stage_rows("Swin-L", SWIN_L_STAGES, SWIN_WINDOW,
+                                      12, SWIN_L_LAUNCHES)
     print(f"K4 per fp32 hint step (launches x ms over the four stages, "
           f"{sum(SWIN_L_LAUNCHES.values())} launches): {per_step['ms']:.4f} ms;"
           f" SDPA {per_step['library_ms']:.4f} ms; bound "
@@ -1799,21 +1844,66 @@ def _split_collectives(step, state, batch, draws) -> dict:
             "collective_ms": run_s[0] * 1e3}
 
 
-def _dp_run(rank: int | None = None, world: int = 1) -> dict:
+def _timed_gather(step, state, batch, draws) -> dict:
+    """One more step of a depth rank, its volume's gather timed: the share
+    checked first (this rank's planes each hold some cost, every other
+    plane is 0), then the wait for the row (a barrier on its group) and the
+    gather itself, both on the host clock with the card synchronized."""
+    import torch
+    import torch.distributed as dist
+
+    from mal_tpu_torch.ops import cost_volume
+    from mal_tpu_torch.parallel import mesh
+
+    plain = cost_volume.gather_planes
+    rec = {}
+
+    def timed(volume, group):
+        torch.cuda.synchronize()
+        _, index, n = mesh.depth_share()
+        share = cost_volume.plane_share(volume.shape[1], index, n)
+        outside = torch.ones(volume.shape[1], dtype=torch.bool)
+        outside[share] = False
+        rec["share_planes"] = int((volume[:, share].abs().amax(dim=(0, 2, 3))
+                                   > 0).sum())
+        rec["outside_max"] = volume[:, outside.cuda()].abs().max().item()
+        t0 = time.perf_counter()
+        dist.barrier(group=group)
+        t1 = time.perf_counter()
+        out = plain(volume, group)
+        torch.cuda.synchronize()
+        rec["gather_wait_ms"] = (t1 - t0) * 1e3
+        rec["gather_ms"] = (time.perf_counter() - t1) * 1e3
+        rec["gather_bytes"] = volume.numel() * volume.element_size()
+        return out
+
+    cost_volume.gather_planes = timed
+    try:
+        step(state, batch, 0.0, draws=draws)
+        torch.cuda.synchronize()
+    finally:
+        cost_volume.gather_planes = plain
+    return rec
+
+
+def _dp_run(rank: int | None = None, world: int = 1, n_depth: int = 1
+            ) -> dict:
     """`DP_STEPS` steps at `Config()` on the global batch (rank None) or on
-    rank `rank`'s share of it in a group of `world`: the losses, bins and
-    step ms of each step (a rank's steps start together, after a barrier),
-    every kernel's launches a step, the parameters and buffers after the
-    steps and, for a rank, one more step's collectives
-    (`_split_collectives`)."""
+    rank `rank`'s share of it in a group of `world` with `n_depth` ranks a
+    depth row (the row's ranks take the same shard and split the volume's
+    planes): the losses, bins and step ms of each step (a rank's steps
+    start together, after a barrier), every kernel's launches a step, the
+    parameters and buffers after the steps and, for a rank, one more
+    step's collectives (`_split_collectives`) or, in a depth row, its
+    volume's gather (`_timed_gather`)."""
     import torch
     import torch.distributed as dist
 
     from mal_tpu_torch.config import Config
     from mal_tpu_torch.data.synthetic import synthetic_batch
-    from mal_tpu_torch.parallel import mesh
+    from mal_tpu_torch.parallel import distributed, mesh
     from mal_tpu_torch.train.state import create_train_state
-    from mal_tpu_torch.train.step import make_train_step
+    from mal_tpu_torch.train.step import check_parallel, make_train_step
 
     every = _counted_wrappers()
     cfg = Config()
@@ -1822,9 +1912,12 @@ def _dp_run(rank: int | None = None, world: int = 1) -> dict:
     draws = [_draws(cfg, 5 + i) for i in range(DP_STEPS)]
     local = cfg
     if rank is not None:
-        local = cfg.replace(batch_size=cfg.batch_size // world)
-        batch = mesh.shard_batch(batch, rank, world)
-        draws = [mesh.shard_batch(d, rank, world) for d in draws]
+        cfg = cfg.replace(num_depth_shards=n_depth)
+        check_parallel(cfg, world, global_batch=cfg.batch_size)
+        g = distributed.grid(n_depth, world, rank)
+        local = cfg.replace(batch_size=cfg.batch_size // g.n_data)
+        batch = mesh.shard_batch(batch, g.data_index, g.n_data)
+        draws = [mesh.shard_batch(d, g.data_index, g.n_data) for d in draws]
     # rank 1 starts from other weights: the broadcast gives it rank 0's
     state = create_train_state(local, generator=torch.Generator().manual_seed(
         1 if rank == 1 else 0))
@@ -1846,31 +1939,140 @@ def _dp_run(rank: int | None = None, world: int = 1) -> dict:
         out["bins"].append((state.bins.min_depth.item(),
                             state.bins.max_depth.item()))
     out["state"] = {k: v.cpu() for k, v in state.model.state_dict().items()}
-    if rank is not None:
+    if rank is not None and n_depth > 1:
+        out.update(_timed_gather(step, state, batch, draws[-1]))
+    elif rank is not None:
         out.update(_split_collectives(step, state, batch, draws[-1]))
     return out
 
 
+def _dyn_run(rank: int | None = None, world: int = 1, n_depth: int = 1
+             ) -> dict:
+    """One DynamicDepth step at its benchmark configuration with a global
+    batch of DEPTH_DYN_BATCH, on the whole batch (rank None) or on rank
+    `rank`'s share in a group of `world` with `n_depth` ranks a depth row,
+    whose ranks are replicas (`mal_tpu` does not split DynamicDepth's
+    volume either): the loss, ms, launches and the state after."""
+    import torch
+
+    from mal_tpu_torch.config import Config
+    from mal_tpu_torch.data.synthetic import (synthetic_batch,
+                                              synthetic_doj_masks)
+    from mal_tpu_torch.parallel import distributed, mesh
+    from mal_tpu_torch.train.state import create_train_state
+    from mal_tpu_torch.train.step import make_train_step
+
+    every = _counted_wrappers()
+    cfg = Config(**{**DYNAMIC, "batch_size": DEPTH_DYN_BATCH})
+    batch = synthetic_batch(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    batch.update(synthetic_doj_masks(cfg, "cuda"))
+    draws = _draws(cfg, 11)
+    local = cfg
+    if rank is not None:
+        cfg = cfg.replace(num_depth_shards=n_depth)
+        g = distributed.grid(n_depth, world, rank)
+        local = cfg.replace(batch_size=cfg.batch_size // g.n_data)
+        batch = mesh.shard_batch(batch, g.data_index, g.n_data)
+        draws = mesh.shard_batch(draws, g.data_index, g.n_data)
+    state = create_train_state(local, generator=torch.Generator().manual_seed(
+        1 if rank == 1 else 0))
+    mesh.broadcast_state(state)
+    step = make_train_step(local)
+    for fn in every:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, 0.0, draws=draws)
+    torch.cuda.synchronize()
+    return {"loss": m["loss"].item(), "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {fn.__name__: fn.launches for fn in every},
+            "state": {k: v.cpu() for k, v in state.model.state_dict().items()}}
+
+
 def dp_rank_main(rank: int, out_dir: str) -> int:
-    """A rank of `data_parallel_phase` (its group as `setup.json` in
-    `out_dir` says): `_dp_run`, its results written to `out_dir`."""
+    """A rank of `data_parallel_phase` or `depth_axis_phase` (its group as
+    `setup.json` in `out_dir` says): `_dp_run` (and in a depth row
+    `_dyn_run`, and on rank 0 K1 on its share of the planes), its results
+    written to `out_dir`."""
     import torch
 
     from mal_tpu_torch.parallel import distributed
 
     with open(os.path.join(out_dir, "setup.json")) as f:
         setup = json.load(f)
+    n_depth = setup.get("n_depth", 1)
     device = torch.device("cuda", rank if setup["nccl"] else 0)
     distributed.initialize(f"file://{os.path.join(out_dir, 'rendezvous')}",
                            setup["world"], rank,
                            backend="nccl" if setup["nccl"] else "gloo",
                            device=device)
     try:
-        torch.save(_dp_run(rank, setup["world"]),
-                   os.path.join(out_dir, f"rank{rank}.pt"))
+        out = _dp_run(rank, setup["world"], n_depth)
+        if n_depth > 1:
+            torch.cuda.empty_cache()
+            out["dynamic"] = _dyn_run(rank, setup["world"], n_depth)
+            if rank == 0:
+                out["k1_share"] = k1_share_check(n_depth)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         distributed.shutdown()
     return 0
+
+
+def _spawn_ranks(world: int, nccl: bool, n_depth: int = 1) -> list:
+    """`world` ranks of this script (`--dp-rank r`), their results read
+    back; a rank that fails fails the phase."""
+    import shutil
+
+    import torch
+
+    out_dir = os.path.abspath(os.path.join("build", "chip_smoke_dp"))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    with open(os.path.join(out_dir, "setup.json"), "w") as f:
+        json.dump({"world": world, "nccl": nccl, "n_depth": n_depth}, f)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-rank", str(r), "--dp-dir", out_dir])
+             for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rcs == [0] * world, f"ranks exited with {rcs}")
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
+             for r in range(world)]
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return ranks
+
+
+def _hold_ranks(what: str, ranks: list, ref: dict) -> None:
+    """The ranks' states equal bit for bit, and rank 0's losses, bins and
+    parameters and buffers against the one-process run `ref` (DP_LOSS_RTOL,
+    DP_BINS_RTOL, DP_PARAM_ATOL)."""
+    import torch
+
+    a = ranks[0]
+    for r, other in enumerate(ranks[1:], start=1):
+        for k, v in a["state"].items():
+            check(torch.equal(v, other["state"][k]),
+                  f"{what}: rank {r}'s {k} differs from rank 0's")
+    for i in range(len(ref["loss"])):
+        check(abs(a["loss"][i] - ref["loss"][i])
+              <= DP_LOSS_RTOL * abs(ref["loss"][i]), f"{what}: step {i} loss")
+        for g, w in zip(a["bins"][i], ref["bins"][i]):
+            check(abs(g - w) <= DP_BINS_RTOL * abs(w),
+                  f"{what}: step {i} bins")
+    gap = max((v.double() - ref["state"][k].double()).abs().max().item()
+              for k, v in a["state"].items() if v.is_floating_point())
+    print(f"{what} against one process: largest parameter or buffer "
+          f"difference after {len(ref['loss'])} steps {gap:.3e} (at most "
+          f"{DP_PARAM_ATOL})")
+    check(gap <= DP_PARAM_ATOL, f"{what}: the state left the one-process "
+          f"state")
 
 
 def data_parallel_phase(world: int = 2, nccl: bool = False
@@ -1883,31 +2085,11 @@ def data_parallel_phase(world: int = 2, nccl: bool = False
     steps (5e-5 absolute); the ranks' states equal bit for bit; K1 once a
     step on each rank and every other kernel 0. A rank that fails fails
     the phase."""
-    import shutil
-
     import torch
 
     ref = _dp_run()
     torch.cuda.empty_cache()
-    out_dir = os.path.abspath(os.path.join("build", "chip_smoke_dp"))
-    shutil.rmtree(out_dir, ignore_errors=True)
-    os.makedirs(out_dir)
-    with open(os.path.join(out_dir, "setup.json"), "w") as f:
-        json.dump({"world": world, "nccl": nccl}, f)
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                               "--dp-rank", str(r), "--dp-dir", out_dir])
-             for r in range(world)]
-    try:
-        rcs = [p.wait(timeout=600) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    check(rcs == [0] * world, f"data-parallel ranks exited with {rcs}")
-    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"))
-             for r in range(world)]
-    shutil.rmtree(out_dir, ignore_errors=True)
+    ranks = _spawn_ranks(world, nccl)
     card = card_line()
     where = (f"NCCL, cuda:0-{world - 1}" if nccl
              else f"gloo, all {world} on cuda:0")
@@ -1928,26 +2110,104 @@ def data_parallel_phase(world: int = 2, nccl: bool = False
               f" ({card})")
         for i, n in enumerate(got["launches"]):
             check(n == want, f"rank {r} step {i}: launches {n}, not {want}")
-    a = ranks[0]
-    for r, other in enumerate(ranks[1:], start=1):
-        for k, v in a["state"].items():
-            check(torch.equal(v, other["state"][k]),
-                  f"rank {r}'s {k} differs from rank 0's")
-    for i in range(DP_STEPS):
-        check(abs(a["loss"][i] - ref["loss"][i])
-              <= DP_LOSS_RTOL * abs(ref["loss"][i]), f"step {i} loss")
-        for g, w in zip(a["bins"][i], ref["bins"][i]):
-            check(abs(g - w) <= DP_BINS_RTOL * abs(w), f"step {i} bins")
-    gap = max((v.double() - ref["state"][k].double()).abs().max().item()
-              for k, v in a["state"].items() if v.is_floating_point())
-    print(f"data parallel against one process: largest parameter or buffer "
-          f"difference after {DP_STEPS} steps {gap:.3e} (at most "
-          f"{DP_PARAM_ATOL})")
-    check(gap <= DP_PARAM_ATOL, "the data-parallel state left the "
-          "one-process state")
+    _hold_ranks("data parallel", ranks, ref)
     return {f"dp{'_nccl' if nccl else ''}_rank{r}":
             {k: sum(n[k] for n in got["launches"]) for k in want}
             for r, got in enumerate(ranks)}
+
+
+DEPTH_SHARDS = 2
+# DynamicDepth's replica step in the depth phase: its benchmark
+# configuration with a global batch that every data width of the phase
+# (1, 2, 3, 4, 6 or 12 shards) divides
+DEPTH_DYN_BATCH = 12
+
+
+def k1_share_check(n_depth: int) -> dict:
+    """K1 on depth rank 0's share of `Config()`'s 96 planes (48 for two
+    ranks) at the main path's other shapes, against its plain version and
+    timed, as `k1_phase` holds the 96-plane launch."""
+    from mal_tpu_torch.ops.cost_volume import plane_share
+
+    cur, lookup, M, t, bins = k1_inputs()
+    share = plane_share(bins.shape[0], 0, n_depth)
+    return _k1_measure(f"K1 (depth share 0 of {n_depth})", cur, lookup, M, t,
+                       bins[share].contiguous())
+
+
+def depth_axis_phase(world: int = 2, nccl: bool = False
+                     ) -> tuple[dict[str, dict[str, int]], dict]:
+    """The depth axis at `Config()` (192x640, batch 12, 96 planes):
+    `world` ranks as world / 2 data shards x 2 depth ranks (gloo on cuda:0,
+    or with `nccl` rank r on cuda:r), each depth row holding one shard of
+    the global batch of 12 and splitting the volume's planes, against the
+    one-process step run alone first: `DP_STEPS` steps, the loss (2e-4
+    relative), the bins (1e-5), every parameter and buffer (5e-5); the
+    ranks equal bit for bit; K1 once a step on each rank, on its 48 planes
+    (its volume's other planes 0 before the gather) and every other kernel
+    0; each rank's step ms and the ms of one step's gather. Then one
+    DynamicDepth step in the same layout, the depth ranks replicas: K6
+    once on each rank, the loss against one process's. On rank 0, K1 on
+    its 48-plane share against its plain version, timed. Returns the
+    launches by path and the share's K1 record."""
+    import torch
+
+    n_depth = DEPTH_SHARDS
+    ref = _dp_run()
+    ref_dyn = _dyn_run()
+    torch.cuda.empty_cache()
+    ranks = _spawn_ranks(world, nccl, n_depth)
+    card = card_line()
+    n_data = world // n_depth
+    where = (f"NCCL, cuda:0-{world - 1}" if nccl
+             else f"gloo, all {world} on cuda:0")
+    names = [fn.__name__ for fn in _counted_wrappers()]
+    want = {k: int(k == "plane_sweep_diffs") for k in names}
+    want_dyn = {k: int(k == "plane_sweep_diffs_occ") for k in names}
+    planes = 96 // n_depth
+    print(f"one process, batch 12 (run alone): losses {ref['loss']}, bins "
+          f"{ref['bins']}, step ms "
+          f"{', '.join(f'{t:.2f}' for t in ref['ms'])}; DynamicDepth batch "
+          f"{DEPTH_DYN_BATCH}: loss {ref_dyn['loss']}, "
+          f"{ref_dyn['ms']:.2f} ms ({card})")
+    for r, got in enumerate(ranks):
+        g_data, g_depth = divmod(r, n_depth)
+        print(f"depth axis, rank {r} of {world} ({where}; data shard "
+              f"{g_data} of {n_data}, batch {12 // n_data}; depth share "
+              f"{g_depth} of {n_depth}, {got['share_planes']} planes): "
+              f"losses {got['loss']}, bins {got['bins']}, step ms (after a "
+              f"barrier) {', '.join(f'{t:.2f}' for t in got['ms'])}; one "
+              f"more step: gather {got['gather_ms']:.3f} ms of "
+              f"{got['gather_bytes'] / 2 ** 20:.1f} MiB after "
+              f"{got['gather_wait_ms']:.3f} ms waiting for the row (barrier; "
+              f"host clock, card synchronized); DynamicDepth replica step "
+              f"loss {got['dynamic']['loss']}, {got['dynamic']['ms']:.2f} ms"
+              f" ({card})")
+        for i, n in enumerate(got["launches"]):
+            check(n == want, f"depth rank {r} step {i}: launches {n}, not "
+                  f"{want}")
+        check(got["share_planes"] == planes and got["outside_max"] == 0.0,
+              f"depth rank {r}: its volume held {got['share_planes']} "
+              f"planes (not {planes}), {got['outside_max']} outside them")
+        check(got["dynamic"]["launches"] == want_dyn,
+              f"depth rank {r} DynamicDepth: launches "
+              f"{got['dynamic']['launches']}, not {want_dyn}")
+    _hold_ranks("depth axis", ranks, ref)
+    _hold_ranks("depth axis, DynamicDepth replicas",
+                [{"loss": [x["dynamic"]["loss"]], "bins": [()],
+                  "state": x["dynamic"]["state"]} for x in ranks],
+                {"loss": [ref_dyn["loss"]], "bins": [()],
+                 "state": ref_dyn["state"]})
+    tag = "_nccl" if nccl else ""
+    by_path = {}
+    for r, got in enumerate(ranks):
+        by_path[f"depth{tag}_rank{r}"] = {
+            k: sum(n[k] for n in got["launches"]) for k in names}
+        by_path[f"depth{tag}_dynamic_rank{r}"] = got["dynamic"]["launches"]
+    share = dict(ranks[0]["k1_share"], launches_per_step_per_rank=1,
+                 step_ms_rank0=ranks[0]["ms"],
+                 gather_ms_rank0=ranks[0]["gather_ms"])
+    return by_path, share
 
 
 # the CLI phase's fake KITTI tree: 36 training lines (3 steps at batch 12),
@@ -2655,6 +2915,147 @@ def seg_inference_phase(kernels: list, every: list) -> dict[str, dict]:
     return by_path
 
 
+# MaskFormer v1 at `mal_tpu`'s defaults (Swin-T, 100 queries, 80 classes,
+# fp32), batch 2 at 256x448: stage -> (padded map, real map, C, heads,
+# whether odd blocks shift) of its Swin-T (window 7; every stage's padded
+# map exceeds one window, so every odd block shifts)
+V1_BATCH, V1_HEIGHT, V1_WIDTH = 2, 256, 448
+SWIN_T_STAGES = {0: ((70, 112), (64, 112), 96, 3, True),
+                 1: ((35, 56), (32, 56), 192, 6, True),
+                 2: ((21, 28), (16, 28), 384, 12, True),
+                 3: ((14, 14), (8, 14), 768, 24, True)}
+SWIN_T_WINDOW = 7
+SWIN_T_LAUNCHES = {0: 2, 1: 2, 2: 6, 3: 2}   # blocks a stage, one forward
+K4_V1_A_FORWARD = sum(SWIN_T_LAUNCHES.values())
+
+
+def maskformer_v1_phase(kernels: list, every: list) -> dict[str, dict]:
+    """MaskFormer v1 at `mal_tpu`'s defaults (Swin-T, 100 queries, 80
+    classes, fp32, seeded weights), batch 2 at 256x448: first K4 at Swin-T's
+    four stage shapes beside SDPA (`_k4_stage_rows`), then every K4 call of
+    one forward against its plain version (at most K4_ATOL times the plain
+    output's largest value, at least 1); then, counted, a forward (K4 = 12,
+    every other kernel 0) with semantic and panoptic inference on its
+    output, and `PerPixelBaselineHead` with the FPN and with the
+    transformer-encoder pixel decoder on the backbone's features (no
+    kernel), each forward timed."""
+    import torch
+
+    from mal_tpu_torch.segment.inference import (panoptic_inference,
+                                                 semantic_inference)
+    from mal_tpu_torch.segment.mask2former import preprocess_images
+    from mal_tpu_torch.segment.maskformer_v1 import (MaskFormerV1,
+                                                     PerPixelBaselineHead)
+
+    t_phase = time.perf_counter()
+    shapes, per_forward = _k4_stage_rows("Swin-T", SWIN_T_STAGES,
+                                         SWIN_T_WINDOW, V1_BATCH,
+                                         SWIN_T_LAUNCHES)
+    print(f"K4 per MaskFormer v1 forward (launches x ms over the four "
+          f"stages, {K4_V1_A_FORWARD} launches): {per_forward['ms']:.4f} ms;"
+          f" SDPA {per_forward['library_ms']:.4f} ms; bound "
+          f"{per_forward['bound_ms']:.4f} ms")
+    for k in kernels:
+        if k["name"] == "window_attention":
+            k["swin_t_shapes"] = shapes
+            k["per_v1_forward_ms"] = per_forward
+
+    model = MaskFormerV1(generator=torch.Generator().manual_seed(3))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    images = torch.rand((V1_BATCH, V1_HEIGHT, V1_WIDTH, 3), generator=g,
+                        device="cuda")
+    records: list = []
+    with torch.no_grad(), _compare_kernels(records):
+        model(images)
+    rows = [r for r in records if r[0] == "window_attention"]
+    check(len(rows) == len(records) == K4_V1_A_FORWARD,
+          f"MaskFormer v1: {len(rows)} K4 calls of {len(records)} kernel "
+          f"calls, not {K4_V1_A_FORWARD}")
+    worst = max(r[2] / max(1.0, r[3]) for r in rows)
+    print(f"window_attention inside the MaskFormer v1 forward: {len(rows)} "
+          f"calls at {sorted({r[1] for r in rows})}; largest error "
+          f"{max(r[2] for r in rows):.3e}, relative to max(1, |plain|) "
+          f"{worst:.3e} (atol {K4_ATOL})")
+    check(worst <= K4_ATOL, f"K4 disagrees with its plain version inside "
+          f"MaskFormer v1: {worst}")
+    for k in kernels:
+        if k["name"] == "window_attention":
+            k["v1_max_abs_err"] = max(r[2] for r in rows)
+
+    def counted(want: dict, fn):
+        for f in every:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {f.__name__: f.launches for f in every}
+        for k, n in got.items():
+            check(n == want.get(k, 0), f"MaskFormer v1: {k} launched {n} "
+                  f"times, not {want.get(k, 0)}")
+        return out, got
+
+    def timed_ms(fn, reps: int = 3) -> list[float]:
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    by_path = {}
+    thing = torch.zeros(80, dtype=torch.bool, device="cuda")
+    thing[:40] = True
+
+    def forward_and_inference():
+        logits, masks = model(images)
+        return (logits, masks, semantic_inference(logits, masks),
+                panoptic_inference(logits, masks, thing,
+                                   object_mask_threshold=0.0))
+
+    h4, w4 = V1_HEIGHT // 4, V1_WIDTH // 4
+    with torch.no_grad():
+        (logits, masks, sem, pan), by_path["v1_forward"] = counted(
+            {"window_attention": K4_V1_A_FORWARD}, forward_and_inference)
+        check(logits.shape == (V1_BATCH, 100, 81)
+              and masks.shape == (V1_BATCH, 100, h4, w4)
+              and torch.isfinite(logits).all().item()
+              and torch.isfinite(masks).all().item(), "v1 outputs")
+        check(sem.shape == (V1_BATCH, 80, h4, w4)
+              and torch.isfinite(sem).all().item(), "v1 semantic output")
+        check(pan.seg.shape == (V1_BATCH, h4, w4)
+              and pan.seg.dtype == torch.int32
+              and int(pan.seg.max()) <= int(pan.ids.max()),
+              "v1 panoptic output")
+        forward_ms = timed_ms(lambda: model(images))
+        feats = model.backbone(preprocess_images(images, model.bgr_input))
+        head_ms, heads = {}, {}
+        for enc in (False, True):
+            name = "transformer_enc" if enc else "fpn"
+            torch.manual_seed(4)      # torch's default initialisation
+            head = PerPixelBaselineHead(
+                {f"res{s + 2}": 96 * 2 ** s for s in range(4)},
+                transformer_enc=enc).cuda().eval()
+            out, by_path[f"v1_per_pixel_{name}"] = counted({}, lambda: head(
+                feats))
+            check(out.shape == (V1_BATCH, V1_HEIGHT, V1_WIDTH, 80)
+                  and torch.isfinite(out).all().item(),
+                  f"per-pixel head ({name}) output")
+            head_ms[name] = timed_ms(lambda: head(feats))
+            heads[name] = head
+    print(f"MaskFormer v1 (Swin-T, batch {V1_BATCH}, {V1_HEIGHT}x{V1_WIDTH},"
+          f" fp32): forward ms {', '.join(f'{t:.2f}' for t in forward_ms)} "
+          f"({int(pan.valid.sum())} panoptic segments); per-pixel baseline "
+          f"head ms on the backbone's features: "
+          + "; ".join(f"{n} {', '.join(f'{t:.2f}' for t in v)}"
+                      for n, v in head_ms.items())
+          + f"; launches {by_path} ({card_line()})")
+    del model, heads
+    print(f"MaskFormer v1 phase wall time "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    return by_path
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--steps", type=int, default=3,
@@ -2737,14 +3138,24 @@ def main(argv=None) -> int:
         by_path.update(data_parallel_phase(cards, nccl=True))
     else:
         by_path.update(data_parallel_phase())
+    # one NCCL process a card as (cards / 2) data x 2 depth where the card
+    # count is even and divides 24, else two gloo processes on cuda:0 as
+    # 1 x 2
+    if cards % 2 == 0 and 24 % cards == 0:
+        depth_paths, k1_share = depth_axis_phase(cards, nccl=True)
+    else:
+        depth_paths, k1_share = depth_axis_phase()
+    by_path.update(depth_paths)
+    kernels[0]["depth_share"] = k1_share
     by_path.update(dualref_path_phase(args.steps, args.profile, False, every))
     by_path.update(dualref_path_phase(args.steps, args.profile, True, every))
     by_path.update(cli_phase(args.profile, every))
     t_seg = time.perf_counter()
     by_path.update(finetune_phase(every))
     by_path.update(seg_inference_phase(kernels, every))
-    print(f"fine-tuning and inference phases (10, 11) wall time "
-          f"{time.perf_counter() - t_seg:.2f} s")
+    by_path.update(maskformer_v1_phase(kernels, every))
+    print(f"fine-tuning, inference and MaskFormer v1 phases (10, 11, 12) "
+          f"wall time {time.perf_counter() - t_seg:.2f} s")
     for k in kernels:
         k["launches_by_path"] = {path: counts.get(k["name"], 0)
                                  for path, counts in by_path.items()}

@@ -10,7 +10,9 @@ The flags are `mal_tpu.cli`'s, plus `--device` (default `cuda`, which raises
 when no card is present; `--device cpu` runs the plain PyTorch path).
 `train --coordinator host:port --num_hosts N --host_id i`, run once per
 process, trains data parallel over N processes, one per card (in the
-port the flags count processes, not hosts; `parallel/distributed.py`). Any
+port the flags count processes, not hosts; `parallel/distributed.py`);
+with `--set num_depth_shards=n` (n dividing N) the N processes form N / n
+data shards of n ranks each, which split the cost volume's planes. Any
 Config field can be overridden with `--set key=value`. Split files resolve
 against the working directory (`splits/<split>/train_files.txt`, ...).
 `main` returns what the command made: the `Trainer` of `train`, the metrics
@@ -66,8 +68,8 @@ def _train_dataset(cfg: Config, seg_cache_root: str | None):
 def build_train_loader(cfg: Config, shard: tuple[int, int] = (0, 1)):
     """The training loader: the threaded native decode with background
     prefetch (`mal_tpu/cli.py:34-64`) when `cfg.native_loader` is on and
-    `libmalio.so` builds, else the PIL loader; `shard` (rank, world) is
-    the process's share of the split. Prints which one runs, and why the
+    `libmalio.so` builds, else the PIL loader; `shard` (data index, data
+    shards) is the process's share of the split. Prints which one runs, and why the
     native one does not."""
     from mal_tpu_torch.data.mono_dataset import DataLoader
 
@@ -137,8 +139,10 @@ def cmd_train(args):
     elif world != 1 or rank != 0:
         raise ValueError("--num_hosts and --host_id need --coordinator "
                          "host:port")
+    g = distributed.grid(cfg.num_depth_shards, world, rank)
     try:
-        return _train(args, cfg, device, (rank, world))
+        # the ranks of a depth row read the same shard
+        return _train(args, cfg, device, (g.data_index, g.n_data))
     finally:
         if args.coordinator:
             distributed.shutdown()

@@ -20,6 +20,11 @@ segmenter: `mask2former_state_dict` turns `mal_tpu`'s Mask2Former variables
 into the detectron2 keys that `mal_tpu/convert/mask2former.py:
 export_mask2former_state` writes and the port's `Mask2Former` carries,
 splitting each Swin stage's `nn.scan`-stacked block parameters per block.
+`load_jax_maskformer_v1` fills the port's `MaskFormerV1` the same way
+(the Swin as for Mask2Former; the v1 pixel decoder and standard decoder
+under detectron2's names), and `load_jax_v1_module` any one of v1's
+modules (a pixel decoder, the standard decoder, `PerPixelBaselineHead`).
+`mal_tpu` reads no detectron2 file for v1, and neither does the port.
 """
 
 from __future__ import annotations
@@ -311,3 +316,124 @@ def load_jax_mask2former(model: torch.nn.Module, variables: Mapping) -> None:
     ...}, numpy): every tensor assigned, every leaf consumed."""
     _load_strict(model, mask2former_state_dict(variables["params"],
                                                model.swin_size))
+
+
+# ---------------------------------------------------------------------------
+# MaskFormer v1 (`segment/maskformer_v1.py`)
+# ---------------------------------------------------------------------------
+
+def _mha_state(lv: _Leaves, sd: dict, key: str, *path: str) -> None:
+    """flax q / k / v / out Denses -> torch's packed in_proj and out_proj."""
+    sd[key + ".in_proj_weight"] = np.concatenate(
+        [lv.take(*path, n, "kernel").T for n in "qkv"])
+    sd[key + ".in_proj_bias"] = np.concatenate(
+        [lv.take(*path, n, "bias") for n in "qkv"])
+    lv.dense(sd, key + ".out_proj", *path, "out")
+
+
+def _numbered(lv: _Leaves, path: tuple, stem: str) -> int:
+    """How many `{stem}{i}` children the flax tree has at `path`."""
+    n = len(path)
+    return len({k[n] for k in lv.left if k[:n] == path
+                and re.fullmatch(stem + r"\d+", k[n])})
+
+
+def _v1_pixel_decoder_state(lv: _Leaves, sd: dict, p: str, t: tuple,
+                            names: list[str]) -> None:
+    """FPN / transformer-encoder pixel decoder: flax `adapter_{f}`,
+    `layer_{f}`, `layer_coarse` (each with its `_norm`), `mask_features`,
+    `input_proj` and `enc_{l}` -> detectron2's `adapter_{i}`, `layer_{i}`,
+    `layer_{top}`, `transformer.encoder.layers.{l}`."""
+    for i, f in enumerate(names[:-1]):
+        for ours, theirs in ((f"adapter_{i + 1}", f"adapter_{f}"),
+                             (f"layer_{i + 1}", f"layer_{f}")):
+            lv.conv(sd, p + ours, *t, theirs, bias=False)
+            lv.norm(sd, p + ours + ".norm", *t, theirs + "_norm")
+    top = f"layer_{len(names)}"
+    lv.conv(sd, p + top, *t, "layer_coarse", bias=False)
+    lv.norm(sd, p + top + ".norm", *t, "layer_coarse_norm")
+    lv.conv(sd, p + "mask_features", *t, "mask_features")
+    layers = _numbered(lv, t, "enc_")
+    if layers:
+        lv.conv(sd, p + "input_proj", *t, "input_proj")
+    for l in range(layers):
+        lp, lt = f"{p}transformer.encoder.layers.{l}.", t + (f"enc_{l}",)
+        _mha_state(lv, sd, lp + "self_attn", *lt, "self_attn")
+        for sub in ("linear1", "linear2"):
+            lv.dense(sd, lp + sub, *lt, sub)
+        for sub in ("norm1", "norm2"):
+            lv.norm(sd, lp + sub, *lt, sub)
+
+
+def _v1_predictor_state(lv: _Leaves, sd: dict, p: str, t: tuple) -> None:
+    """StandardTransformerDecoder: flax `dec_{l}` (`cross_attn` the
+    detectron2 `multihead_attn`), `decoder_norm`, `query_embed`,
+    `class_embed`, `mask_embed/fc{i}` and the optional `input_proj`."""
+    if (*t, "input_proj", "kernel") in lv.left:
+        lv.conv(sd, p + "input_proj", *t, "input_proj")
+    sd[p + "query_embed.weight"] = lv.take(*t, "query_embed")
+    for l in range(_numbered(lv, t, "dec_")):
+        lp, lt = f"{p}transformer.decoder.layers.{l}.", t + (f"dec_{l}",)
+        _mha_state(lv, sd, lp + "self_attn", *lt, "self_attn")
+        _mha_state(lv, sd, lp + "multihead_attn", *lt, "cross_attn")
+        for sub in ("linear1", "linear2"):
+            lv.dense(sd, lp + sub, *lt, sub)
+        for sub in ("norm1", "norm2", "norm3"):
+            lv.norm(sd, lp + sub, *lt, sub)
+    lv.norm(sd, p + "transformer.decoder.norm", *t, "decoder_norm")
+    lv.dense(sd, p + "class_embed", *t, "class_embed")
+    for i in range(_numbered(lv, t + ("mask_embed",), "fc")):
+        lv.dense(sd, f"{p}mask_embed.layers.{i}", *t, "mask_embed", f"fc{i}")
+
+
+def _finish(lv: _Leaves, sd: dict) -> dict[str, np.ndarray]:
+    if lv.left:
+        raise KeyError(f"flax leaves without a port tensor: "
+                       f"{sorted('/'.join(k) for k in lv.left)}")
+    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
+
+
+def maskformer_v1_state_dict(params: Mapping, size: str = "tiny"
+                             ) -> dict[str, np.ndarray]:
+    """`mal_tpu` MaskFormerV1 params -> the state dict of the port's
+    `MaskFormerV1` (detectron2's keys). Raises if a leaf is left over."""
+    from mal_tpu_torch.segment.maskformer_v1 import FEATURES
+
+    lv = _Leaves(params)
+    sd: dict[str, np.ndarray] = {}
+    _swin_state(lv, size, sd)
+    _v1_pixel_decoder_state(lv, sd, "sem_seg_head.pixel_decoder.",
+                            ("pixel_decoder",), list(FEATURES))
+    _v1_predictor_state(lv, sd, "sem_seg_head.predictor.", ("predictor",))
+    return _finish(lv, sd)
+
+
+def load_jax_maskformer_v1(model: torch.nn.Module, variables: Mapping
+                           ) -> None:
+    """Fill `model` (a port `MaskFormerV1`, best built with
+    `init_weights=False`) from `mal_tpu`'s flax variables ({"params":
+    ...}, numpy): every tensor assigned, every leaf consumed."""
+    _load_strict(model, maskformer_v1_state_dict(variables["params"],
+                                                 model.swin_size))
+
+
+def load_jax_v1_module(module: torch.nn.Module, variables: Mapping) -> None:
+    """Fill one MaskFormer-v1 module of the port (`FPNPixelDecoder`,
+    `TransformerEncoderPixelDecoder`, `StandardTransformerDecoder` or
+    `PerPixelBaselineHead`) from the variables of its `mal_tpu`
+    counterpart, strictly."""
+    from mal_tpu_torch.segment import maskformer_v1 as v1
+
+    lv = _Leaves(variables["params"])
+    sd: dict[str, np.ndarray] = {}
+    if isinstance(module, v1.PerPixelBaselineHead):
+        _v1_pixel_decoder_state(lv, sd, "pixel_decoder.", ("pixel_decoder",),
+                                module.pixel_decoder.names)
+        lv.conv(sd, "predictor", "predictor")
+    elif isinstance(module, v1.FPNPixelDecoder):
+        _v1_pixel_decoder_state(lv, sd, "", (), module.names)
+    elif isinstance(module, v1.StandardTransformerDecoder):
+        _v1_predictor_state(lv, sd, "", ())
+    else:
+        raise TypeError(f"not a MaskFormer-v1 module: {type(module).__name__}")
+    _load_strict(module, _finish(lv, sd))

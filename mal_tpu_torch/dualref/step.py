@@ -204,7 +204,7 @@ def make_dualref_train_step(cfg: Config,
     device = resolve_device(device)
     schedule = make_schedule(cfg)
 
-    @data_parallel
+    @data_parallel(cfg)
     def train_step(state: TrainState, batch: dict, epoch: float = 0.0,
                    generator: torch.Generator | None = None,
                    draws: dict | None = None):

@@ -171,7 +171,7 @@ def make_dynamic_train_step(cfg: Config,
     train_teacher = not cfg.freeze_teacher_and_pose
     schedule = make_schedule(cfg)
 
-    @data_parallel
+    @data_parallel(cfg)
     def train_step(state: TrainState, batch: dict, epoch: float = 0.0,
                    generator: torch.Generator | None = None,
                    draws: dict | None = None):

@@ -5,13 +5,19 @@ Counterpart of `mal_tpu.models.encoders`:
 `ResnetEncoder`: the plain 5-scale pyramid encoder (teacher / pose trunk),
 `manydepth/networks/resnet_encoder.py:356-398`.
 
+`ResnetEncoderDYJ`: the multi-frame stacked pose encoder with its conv
+pose head, `manydepth/networks/resnet_encoder.py:400-476`.
+
 `ResnetEncoderMatching`: the multi-frame cost-volume encoder,
 `manydepth/networks/resnet_encoder.py:71-329`, with the reference's module
 layout (`layer0 = conv1 + bn1 + relu`, `layer1 = maxpool + layer1`,
 `reduce_conv = conv + relu`). The lookup features and the cost volume are
 computed without gradient, as the reference's `torch.no_grad()` blocks and
 `mal_tpu`'s `stop_gradient` do; the volume comes from kernel K1
-(`ops/cuda/cost_volume_kernel.py`).
+(`ops/cuda/cost_volume_kernel.py`), and inside a depth row
+(`parallel/mesh.py:depth_axis`) K1 runs on this rank's share of the
+planes and the row gathers the volume (`mal_tpu/models/encoders.py:
+140-145`, where GSPMD splits the planes).
 
 `dtype` (None or `torch.bfloat16`) is `mal_tpu`'s: the trunks compute in it
 (`models/resnet.py`), and the matching features go back to fp32 before the
@@ -32,6 +38,7 @@ from mal_tpu_torch.ops.cost_volume import (compute_depth_bins,
                                            indices_to_disparity)
 from mal_tpu_torch.ops.cuda.cost_volume_kernel import (
     plane_sweep_cost_volume_kernel)
+from mal_tpu_torch.parallel import mesh
 
 Tensor = torch.Tensor
 
@@ -54,6 +61,50 @@ class ResnetEncoder(nn.Module):
 
     def _features(self, image: Tensor) -> list[Tensor]:
         return self.encoder(imagenet_normalize(image))
+
+
+class ResnetEncoderDYJ(nn.Module):
+    """Multi-frame stacked pose encoder with a built-in conv pose head
+    (`manydepth/networks/resnet_encoder.py:400-476`).
+
+    The modules carry the reference's names: `encoder` (the torchvision
+    ResNet of `num_input_images` stacked frames, its unused `fc` included)
+    and `net.0`-`net.3` (squeeze 1x1, pose 3x3, pose 3x3, pose 1x1), so a
+    reference state dict loads strictly without a converter.
+
+    Frames stack channel-major, (c t) (`mal_tpu/models/encoders.py:76-78`):
+    [R_t0..R_tN, G_t0.., B_t0..]. The forward returns `mal_tpu`'s
+    (axisangle, translation), each (B, T - 1, 3), the k-th 6-DoF output of
+    the head for each k, and not the reference's inconsistently sliced
+    4-tuple (`mal_tpu/models/encoders.py:56-62`).
+    """
+
+    def __init__(self, num_layers: int = 18, num_input_images: int = 3,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.num_input_images = num_input_images
+        self.encoder = ResNetFeatures(num_layers, num_input_images, dtype)
+        last = self.encoder.num_ch_enc[-1]
+        # torchvision's classifier, in the reference's state dict; never run
+        self.encoder.fc = nn.Linear(last, 1000)
+        self.net = nn.ModuleList([
+            nn.Conv2d(last, 256, 1), nn.Conv2d(256, 256, 3, padding=1),
+            nn.Conv2d(256, 256, 3, padding=1),
+            nn.Conv2d(256, 6 * (num_input_images - 1), 1)])
+
+    def forward(self, frames: Tensor) -> tuple[Tensor, Tensor]:
+        """frames (B, T, 3, H, W), temporally ordered."""
+        B, T, C, H, W = frames.shape
+        if T != self.num_input_images:
+            raise ValueError(f"{T} frames, the encoder takes "
+                             f"{self.num_input_images}")
+        x = frames.transpose(1, 2).reshape(B, C * T, H, W)   # (c t)
+        out = self.encoder(imagenet_normalize(x))[-1]
+        for conv in self.net[:-1]:
+            out = torch.relu(conv(out))
+        out = self.net[-1](out)
+        out = 0.01 * out.mean(dim=(2, 3)).reshape(B, T - 1, 6)
+        return out[..., :3], out[..., 3:]
 
 
 class ResnetEncoderMatching(nn.Module):
@@ -111,7 +162,7 @@ class ResnetEncoderMatching(nn.Module):
                                             self.depth_binning)
             cost_volume, missing_mask = plane_sweep_cost_volume_kernel(
                 cur_feats.permute(0, 2, 3, 1), lookup, poses, K, invK,
-                depth_bins)
+                depth_bins, mesh.depth_share())
             confidence = confidence_mask_from_cost(cost_volume, missing_mask)
             lowest_cost = indices_to_disparity(cost_volume, depth_bins)
             cost_volume = cost_volume * confidence[:, None]

@@ -8,11 +8,19 @@ version for CPU tensors.
 
 The volume is a constant with respect to the parameters (the reference
 computes it under `torch.no_grad()`, `resnet_encoder.py:292-305`).
+
+Split over a depth row (`parallel/mesh.py:depth_axis`), each rank computes
+its contiguous share of the planes (`plane_share`) into a zeroed full
+volume, `gather_planes` sums the row's volumes (each entry has one
+non-zero writer, so the sum is exact), and only then `fill_missing` takes
+each pixel's largest cost over all D planes, as `mal_tpu`'s GSPMD volume
+does (`mal_tpu/ops/cost_volume.py:115-136`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 Tensor = torch.Tensor
 
@@ -57,6 +65,29 @@ def plane_sweep_terms(rel_poses: Tensor, K: Tensor, inv_K: Tensor):
     P = (K[:, None] @ rel_poses)[:, :, :3, :]
     M = P[:, :, :, :3] @ inv_K[:, None, :3, :3]
     return M, P[:, :, :, 3]
+
+
+def plane_share(num_planes: int, index: int, n: int) -> slice:
+    """The planes of share `index` of `n`: contiguous, the first
+    `num_planes % n` shares one plane longer than the rest."""
+    base, extra = divmod(num_planes, n)
+    start = index * base + min(index, extra)
+    return slice(start, start + base + (index < extra))
+
+
+def gather_planes(volume: Tensor, group) -> Tensor:
+    """The depth row's full volume from each rank's zero-filled share, in
+    place: a sum over the row (no gradient; NCCL or gloo alike)."""
+    dist.all_reduce(volume, group=group)
+    return volume
+
+
+def fill_missing(cost: Tensor) -> tuple[Tensor, Tensor]:
+    """(cost, missing mask), each (B, D, h, w): an entry of cost 0 is
+    missing and takes its pixel's largest cost over the D planes."""
+    missing = (cost == 0).to(cost.dtype)
+    cost = cost * (1.0 - missing) + cost.amax(dim=1, keepdim=True) * missing
+    return cost, missing
 
 
 def confidence_mask_from_cost(cost_volume: Tensor, missing_mask: Tensor) -> Tensor:

@@ -14,7 +14,9 @@ what bounds them and how they are laid out.
   plain version.
 - `plane_sweep_diffs_reference` / `plane_sweep_diffs_occ_reference`: the
   plain PyTorch versions, in the kernel's order of operations.
-- `plane_sweep_cost_volume_kernel`: the full cost volume around K1.
+- `plane_sweep_cost_volume_kernel`: the full cost volume around K1, or
+  inside a depth row one rank's share of its planes, gathered;
+  `plane_sweep_cost_share` is a rank's share alone.
 - `plane_sweep_routes`: how many tiles the kernel takes by each of its
   routes (empty, staged in shared memory, direct from device memory), from
   the same projection on any device: the kernel decides this on the card.
@@ -35,6 +37,7 @@ import ctypes
 
 import torch
 
+from mal_tpu_torch.ops import cost_volume
 from mal_tpu_torch.ops.cost_volume import plane_sweep_terms
 from mal_tpu_torch.ops.cuda import refuse_grad
 
@@ -273,6 +276,13 @@ def _routes_ptr(routes: Tensor | None, cur: Tensor) -> int | None:
     return routes.data_ptr()
 
 
+def _cpu_chunk(depth_bins: Tensor) -> int:
+    """The plain version's planes at a time on the CPU: the largest divisor
+    of D up to 16 (a depth rank's share may be any D)."""
+    D = depth_bins.shape[0]
+    return max(c for c in range(1, min(D, 16) + 1) if D % c == 0)
+
+
 def plane_sweep_diffs(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
                       depth_bins: Tensor, routes: Tensor | None = None) -> Tensor:
     """Per-frame masked L1 plane-sweep differences (BF, D, h, w).
@@ -284,9 +294,8 @@ def plane_sweep_diffs(cur: Tensor, lookup: Tensor, M: Tensor, t: Tensor,
     """
     refuse_grad("plane_sweep_diffs", cur, lookup, M, t, depth_bins)
     if cur.device.type == "cpu":
-        D = depth_bins.shape[0]
         return plane_sweep_diffs_reference(cur, lookup, M, t, depth_bins,
-                                           chunk=min(D, 16))
+                                           chunk=_cpu_chunk(depth_bins))
     if cur.device.type != "cuda":
         raise ValueError(f"unsupported device {cur.device}")
     _check(cur, lookup, M, t, depth_bins)
@@ -323,10 +332,9 @@ def plane_sweep_diffs_occ(cur: Tensor, lookup: Tensor, occ: Tensor,
     refuse_grad("plane_sweep_diffs_occ", cur, lookup, occ, apply_occ, M, t,
                 depth_bins)
     if cur.device.type == "cpu":
-        D = depth_bins.shape[0]
         return plane_sweep_diffs_occ_reference(cur, lookup, occ, apply_occ, M,
                                                t, depth_bins, pool_th,
-                                               chunk=min(D, 16))
+                                               chunk=_cpu_chunk(depth_bins))
     if cur.device.type != "cuda":
         raise ValueError(f"unsupported device {cur.device}")
     _check(cur, lookup, M, t, depth_bins, occ=occ, apply_occ=apply_occ)
@@ -352,20 +360,12 @@ def plane_sweep_diffs_occ(cur: Tensor, lookup: Tensor, occ: Tensor,
 plane_sweep_diffs_occ.launches = 0
 
 
-def plane_sweep_cost_volume_kernel(cur_feats: Tensor, lookup_feats: Tensor,
-                                   rel_poses: Tensor, K: Tensor, inv_K: Tensor,
-                                   depth_bins: Tensor):
-    """Counterpart of `plane_sweep_cost_volume_pallas`: (cost_volume,
-    missing_mask), each (B, D, h, w); a missing entry of the cost takes its
-    pixel's largest cost.
-
-    cur_feats (B, h, w, C); lookup_feats (B, F, h, w, C); rel_poses
-    (B, F, 4, 4) where an all-zero pose marks a missing frame; K / inv_K
-    (B, 4, 4) at feature scale; depth_bins (D,). The per-frame differences
-    come from `plane_sweep_diffs`; what surrounds them stays plain torch, as
-    it stays XLA in `mal_tpu`: the projection terms, valid-frame masking,
-    the sum / count over frames and the missing -> max fill.
-    """
+def _frame_mean_cost(cur_feats: Tensor, lookup_feats: Tensor,
+                     rel_poses: Tensor, K: Tensor, inv_K: Tensor,
+                     depth_bins: Tensor) -> Tensor:
+    """The cost of each plane of `depth_bins` (B, D, h, w) before the
+    missing fill: K1's per-frame differences, valid frames only, summed
+    over the frames and divided by the count of frames that saw it."""
     B, h, w, C = cur_feats.shape
     F = lookup_feats.shape[1]
     D = depth_bins.shape[0]
@@ -384,7 +384,50 @@ def plane_sweep_cost_volume_kernel(cur_feats: Tensor, lookup_feats: Tensor,
 
     cost = diffs.sum(dim=1)
     counts = (diffs > 0).to(diffs.dtype).sum(dim=1)
-    cost = cost / (counts + 1e-7)
-    missing = (cost == 0).to(cost.dtype)
-    cost = cost * (1.0 - missing) + cost.amax(dim=1, keepdim=True) * missing
-    return cost, missing
+    return cost / (counts + 1e-7)
+
+
+def plane_sweep_cost_share(cur_feats: Tensor, lookup_feats: Tensor,
+                           rel_poses: Tensor, K: Tensor, inv_K: Tensor,
+                           depth_bins: Tensor, index: int, n: int) -> Tensor:
+    """Depth rank `index` of `n`: K1 on its share of the planes
+    (`ops/cost_volume.py:plane_share`) alone, its cost before the missing
+    fill written into a zeroed (B, D, h, w) volume. The sum of the n shares
+    is the unsplit volume's cost before the fill, exactly."""
+    B, h, w, _ = cur_feats.shape
+    D = depth_bins.shape[0]
+    planes = cost_volume.plane_share(D, index, n)
+    volume = cur_feats.new_zeros((B, D, h, w), dtype=torch.float32)
+    volume[:, planes] = _frame_mean_cost(cur_feats, lookup_feats, rel_poses,
+                                         K, inv_K, depth_bins[planes])
+    return volume
+
+
+def plane_sweep_cost_volume_kernel(cur_feats: Tensor, lookup_feats: Tensor,
+                                   rel_poses: Tensor, K: Tensor, inv_K: Tensor,
+                                   depth_bins: Tensor,
+                                   depth: tuple | None = None):
+    """Counterpart of `plane_sweep_cost_volume_pallas`: (cost_volume,
+    missing_mask), each (B, D, h, w); a missing entry of the cost takes its
+    pixel's largest cost.
+
+    cur_feats (B, h, w, C); lookup_feats (B, F, h, w, C); rel_poses
+    (B, F, 4, 4) where an all-zero pose marks a missing frame; K / inv_K
+    (B, 4, 4) at feature scale; depth_bins (D,). The per-frame differences
+    come from `plane_sweep_diffs`; what surrounds them stays plain torch, as
+    it stays XLA in `mal_tpu`: the projection terms, valid-frame masking,
+    the sum / count over frames and the missing -> max fill.
+
+    `depth` (group, index, n), a depth row (`parallel/mesh.py:depth_share`):
+    this rank launches K1 on share `index` of the planes only, the row
+    gathers the volume, and the fill spans all D planes after the gather.
+    """
+    if depth is None:
+        cost = _frame_mean_cost(cur_feats, lookup_feats, rel_poses, K, inv_K,
+                                depth_bins)
+    else:
+        group, index, n = depth
+        cost = cost_volume.gather_planes(
+            plane_sweep_cost_share(cur_feats, lookup_feats, rel_poses, K,
+                                   inv_K, depth_bins, index, n), group)
+    return cost_volume.fill_missing(cost)

@@ -21,6 +21,19 @@ per backward does not fit the pareto step's three gradient pulls):
 The reductions are active inside `data_axis(world)`, which each training
 step enters; outside it (evaluation, one process) every function here is
 the plain single-process operation, unchanged.
+
+The depth axis (`num_depth_shards` = n_depth > 1, `distributed.grid`):
+the n_depth ranks of a depth row hold the same batch shard, so the
+reductions above, taken over the whole world, count every data shard
+n_depth times. They stay right because each is a ratio whose numerator
+and denominator both carry the factor: a masked mean's share is the local
+sum over the world's mask count (n_depth x the global count), a batch
+mean's the local mean over the world, the BatchNorm moments are sums over
+the world's element count, and the gradients are the sum of every rank's
+share. `global_norm`, a square root of a sum, divides the factor out
+(`replicas`), and a factor of the global batch size counts the shards
+once (`data_shards`). Inside `depth_axis` the ManyDepth cost volume
+splits its planes over the row (`ops/cuda/cost_volume_kernel.py`).
 """
 
 from __future__ import annotations
@@ -37,22 +50,51 @@ Tensor = torch.Tensor
 # not a thread-local: the CUDA autograd engine runs backward, and the
 # rematerialised forwards in it, on threads of its own)
 _WORLD = 1
+# how many ranks hold each data shard (the depth rows' width)
+_REPLICAS = 1
+# (group, depth index, n_depth) of this rank's depth row inside `depth_axis`
+_DEPTH = None
 
 
 @contextlib.contextmanager
-def data_axis(world: int) -> Iterator[None]:
+def data_axis(world: int, replicas: int = 1) -> Iterator[None]:
     """Make the reductions below global over `world` processes (the
-    default process group's) while the block runs."""
-    global _WORLD
-    prev, _WORLD = _WORLD, world
+    default process group's) while the block runs, `replicas` of which
+    hold each data shard."""
+    global _WORLD, _REPLICAS
+    prev, _WORLD, _REPLICAS = (_WORLD, _REPLICAS), world, replicas
     try:
         yield
     finally:
-        _WORLD = prev
+        _WORLD, _REPLICAS = prev
 
 
 def data_world() -> int:
     return _WORLD
+
+
+def data_shards() -> int:
+    """How many distinct shards make the global batch: the data axis's
+    ranks over the replicas of each."""
+    return _WORLD // _REPLICAS
+
+
+@contextlib.contextmanager
+def depth_axis(group, index: int, n_depth: int) -> Iterator[None]:
+    """Split the cost volume's planes over the depth row `group` while the
+    block runs: this rank computes share `index` of `n_depth`
+    (`distributed.depth_row` gives the three)."""
+    global _DEPTH
+    prev, _DEPTH = _DEPTH, (group, index, n_depth)
+    try:
+        yield
+    finally:
+        _DEPTH = prev
+
+
+def depth_share() -> tuple | None:
+    """(group, depth index, n_depth) inside `depth_axis`, else None."""
+    return _DEPTH
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -107,10 +149,11 @@ def global_mean(x: Tensor) -> Tensor:
 
 
 def global_norm(x: Tensor) -> Tensor:
-    """The L2 norm of `x` over the global batch, the same on every rank."""
+    """The L2 norm of `x` over the global batch, the same on every rank
+    (each data shard's squares counted once, whatever the replicas)."""
     if _WORLD == 1:
         return torch.linalg.vector_norm(x)
-    return global_sum(x.square().sum()).sqrt()
+    return (global_sum(x.square().sum()) / _REPLICAS).sqrt()
 
 
 def from_rank0(x: Tensor) -> Tensor:

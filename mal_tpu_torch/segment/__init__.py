@@ -1,6 +1,6 @@
 """The Mask2Former segmenter (frozen for the MAL temporal hint, trainable
-for `finetune-seg`), its criterion, datasets and inference, and the
-instance matcher of the hint (PyTorch)."""
+for `finetune-seg`), its criterion, datasets and inference, the
+MaskFormer-v1 family, and the instance matcher of the hint (PyTorch)."""
 
 from mal_tpu_torch.segment.criterion import (CriterionConfig,  # noqa: F401
                                              set_criterion, set_criterion_deep)
@@ -13,5 +13,8 @@ from mal_tpu_torch.segment.inference import (PanopticSeg,  # noqa: F401
                                              panoptic_inference,
                                              semantic_inference, semantic_tta)
 from mal_tpu_torch.segment.instances import Instances  # noqa: F401
+from mal_tpu_torch.segment.maskformer_v1 import (  # noqa: F401
+    FPNPixelDecoder, MaskFormerV1, PerPixelBaselineHead,
+    StandardTransformerDecoder, TransformerEncoderPixelDecoder)
 from mal_tpu_torch.segment.matcher import (hungarian_match,  # noqa: F401
                                            match_instances)

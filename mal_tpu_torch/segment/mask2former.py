@@ -92,8 +92,10 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
         if isinstance(m, MSDeformAttn):
             nn.init.zeros_(m.sampling_offsets.weight)
             nn.init.zeros_(m.attention_weights.weight)
-    nn.init.normal_(model.sem_seg_head.pixel_decoder.transformer.level_embed,
-                    generator=generator)
+    level_embed = getattr(model.sem_seg_head.pixel_decoder.transformer,
+                          "level_embed", None)    # none in MaskFormer v1
+    if level_embed is not None:
+        nn.init.normal_(level_embed, generator=generator)
 
 
 class Mask2Former(nn.Module):

@@ -29,31 +29,32 @@ ENCODER_LAYERS, FFN_DIM = 6, 1024   # the reference's pixel decoder
 POS_TEMPERATURE = 10000
 
 
-def _gn(channels: int) -> nn.GroupNorm:
-    return nn.GroupNorm(32, channels, eps=NORM_EPS)
+def _gn(channels: int, eps: float = NORM_EPS) -> nn.GroupNorm:
+    return nn.GroupNorm(32, channels, eps=eps)
 
 
 class Conv2dNorm(nn.Conv2d):
-    """detectron2's `Conv2d` with its norm inside (keys `.weight`,
-    `.norm.*`)."""
+    """detectron2's `Conv2d` with its GroupNorm(32) inside (keys `.weight`,
+    `.norm.*`), of epsilon `eps`."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, eps: float = NORM_EPS, **kwargs):
         super().__init__(*args, **kwargs)
-        self.norm = _gn(self.out_channels)
+        self.norm = _gn(self.out_channels, eps)
 
     def forward(self, x: Tensor) -> Tensor:
         return self.norm(super().forward(x))
 
 
-def position_embedding_sine(h: int, w: int, device=None) -> Tensor:
-    """Sine position encoding (h * w, D_MODEL), normalised by (h + eps) as
+def position_embedding_sine(h: int, w: int, device=None,
+                            dim: int = D_MODEL) -> Tensor:
+    """Sine position encoding (h * w, dim), normalised by (h + eps) as
     `mal_tpu/segment/pixel_decoder.py:51-70` does."""
     ys = torch.arange(1, h + 1, dtype=torch.float32, device=device)[:, None]
     xs = torch.arange(1, w + 1, dtype=torch.float32, device=device)[None, :]
     eps = 1e-6
     y_embed = ys / (h + eps) * (2 * math.pi)
     x_embed = xs / (w + eps) * (2 * math.pi)
-    half = D_MODEL // 2
+    half = dim // 2
     dim_t = POS_TEMPERATURE ** (2 * (torch.arange(half, device=device) // 2)
                                 / half)
     pos_x = x_embed[..., None] / dim_t                   # (1, w, half)
@@ -64,7 +65,7 @@ def position_embedding_sine(h: int, w: int, device=None) -> Tensor:
                         dim=-1).reshape(h, 1, half)
     pos = torch.cat([pos_y.expand(h, w, half), pos_x.expand(h, w, half)],
                     dim=-1)
-    return pos.reshape(h * w, D_MODEL)
+    return pos.reshape(h * w, dim)
 
 
 class DeformableEncoderLayer(nn.Module):

@@ -36,17 +36,18 @@ class MultiheadAttention(nn.Module):
     """torch's packed projections (`in_proj_weight`, `out_proj`), computed
     as `mal_tpu` does: scores q k^T / sqrt(d), plus an additive mask."""
 
-    def __init__(self):
+    def __init__(self, dim: int = HIDDEN, heads: int = HEADS):
         super().__init__()
-        self.in_proj_weight = nn.Parameter(torch.zeros(3 * HIDDEN, HIDDEN))
-        self.in_proj_bias = nn.Parameter(torch.zeros(3 * HIDDEN))
-        self.out_proj = nn.Linear(HIDDEN, HIDDEN)
+        self.heads = heads
+        self.in_proj_weight = nn.Parameter(torch.zeros(3 * dim, dim))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
+        self.out_proj = nn.Linear(dim, dim)
 
     def forward(self, q: Tensor, k: Tensor, v: Tensor,
                 mask: Tensor | None = None) -> Tensor:
         """q (B, Nq, C); k, v (B, Nk, C); mask (B, Nq, Nk) additive or None."""
         B, Nq, C = q.shape
-        h, d = HEADS, C // HEADS
+        h, d = self.heads, C // self.heads
         wq, wk, wv = self.in_proj_weight.chunk(3)
         bq, bk, bv = self.in_proj_bias.chunk(3)
         qh = F.linear(q, wq, bq).reshape(B, Nq, h, d)
@@ -61,13 +62,15 @@ class MultiheadAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    """The mask-embed head: MLP_LAYERS Linear layers of HIDDEN, ReLU
-    between them."""
+    """The mask-embed head: `layers` Linear layers (`hidden` wide, the
+    last `out`), ReLU between them."""
 
-    def __init__(self):
+    def __init__(self, hidden: int = HIDDEN, out: int = HIDDEN,
+                 layers: int = MLP_LAYERS):
         super().__init__()
         self.layers = nn.ModuleList(
-            [nn.Linear(HIDDEN, HIDDEN) for _ in range(MLP_LAYERS)])
+            [nn.Linear(hidden, hidden) for _ in range(layers - 1)]
+            + [nn.Linear(hidden, out)])
 
     def forward(self, x: Tensor) -> Tensor:
         for layer in self.layers[:-1]:

@@ -23,11 +23,14 @@ Data parallelism: in a process group of N processes (`parallel/
 distributed.py`) each step runs on the process's shard inside
 `parallel/mesh.py:data_axis`, with the gradients summed over the ranks
 before the update: the step of the N shards is the one-process step on
-their concatenation, as `mal_tpu`'s mesh step is.
+their concatenation, as `mal_tpu`'s mesh step is. With `num_depth_shards`
+> 1 the ranks of a depth row hold one shard, and the ManyDepth step splits
+the cost volume's planes over the row (`parallel/mesh.py:depth_axis`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable
 
@@ -93,25 +96,50 @@ def check_supported(cfg: Config, seg_fn: Callable | None = None) -> None:
         raise NotImplementedError("learn_ens: broken in the reference")
 
 
-def check_parallel(cfg: Config, world: int) -> None:
+LAUNCH = "--coordinator host:port --num_hosts N --host_id i"
+
+
+def check_parallel(cfg: Config, world: int,
+                   global_batch: int | None = None) -> None:
     """Raise for the parallel layouts a run of `world` processes cannot
-    take: depth-plane sharding, and a `num_data_shards` other than 0, 1 or
-    `world` (in one process, more than 1 is `mal_tpu`'s single-process
-    device mesh, which the port runs as one process per card)."""
-    if cfg.num_depth_shards > 1:
+    take: more than one depth shard or data shard in one process
+    (`mal_tpu`'s single-process device mesh, which the port runs as one
+    process per card), a `num_depth_shards` that does not divide the
+    processes, a `num_data_shards` other than what is left of them, and a
+    `global_batch` (where the caller shards one) that the data shards do
+    not divide."""
+    n_depth, shards = cfg.num_depth_shards, cfg.num_data_shards
+    if n_depth < 1:
+        raise ValueError(f"num_depth_shards={n_depth} must be at least 1")
+    if world == 1 and n_depth > 1:
         raise NotImplementedError(
-            "num_depth_shards > 1: not yet ported (ROADMAP M6, the depth "
-            "axis: the cost volume's planes sharded across processes)")
-    shards = cfg.num_data_shards
+            f"num_depth_shards={n_depth} in one process: the port splits "
+            f"the cost volume's planes across processes, one per card, "
+            f"launched with {LAUNCH} where num_depth_shards divides N "
+            f"(README, ROADMAP M6)")
     if world == 1 and shards > 1:
         raise NotImplementedError(
             f"num_data_shards={shards} in one process: the port's data "
-            "parallelism runs one process per card, launched with "
-            "--coordinator host:port --num_hosts N --host_id i "
-            "(README, ROADMAP M6)")
-    if shards not in (0, 1, world):
+            f"parallelism runs one process per card, launched with {LAUNCH}"
+            f" (README, ROADMAP M6)")
+    if world % n_depth:
+        raise ValueError(
+            f"num_depth_shards={n_depth} does not divide the {world} "
+            f"processes of --num_hosts {world}: launch a multiple of "
+            f"{n_depth} ({LAUNCH})")
+    n_data = world // n_depth
+    if n_depth == 1 and shards not in (0, 1, world):
         raise ValueError(f"num_data_shards={shards} must be 0, 1 or the "
                          f"number of processes, {world}")
+    if n_depth > 1 and shards not in (0, n_data):
+        raise ValueError(
+            f"num_data_shards={shards} must be 0 or the number of processes "
+            f"over num_depth_shards, {world} / {n_depth} = {n_data}")
+    if global_batch is not None and global_batch % n_data:
+        raise ValueError(
+            f"a global batch of {global_batch} does not divide over the "
+            f"{n_data} data shards of --num_hosts {world} with "
+            f"num_depth_shards={n_depth} ({LAUNCH})")
 
 
 def warp_frame(src: Tensor, depth: Tensor, T: Tensor, K: Tensor,
@@ -292,7 +320,7 @@ def make_loss_fn(cfg: Config, model: MALModel,
             # the reference re-adds the weighted scalar once per batch item
             # (`loss_utils.py:303-312`), so the objective is B x the sum,
             # B the global batch
-            total = total * (color0.shape[0] * mesh.data_world())
+            total = total * (color0.shape[0] * mesh.data_shards())
         elif cfg.distil:
             # the reference's plain-distil total counts the mono loss twice
             # (aliased "loss/0" / "loss" keys, `loss_utils.py:277-279`)
@@ -390,7 +418,7 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
     train_teacher = not cfg.freeze_teacher_and_pose
     schedule = make_schedule(cfg)
 
-    @data_parallel
+    @data_parallel(cfg, split_planes=True)
     def train_step(state: TrainState, batch: dict, epoch: float = 0.0,
                    generator: torch.Generator | None = None,
                    draws: dict | None = None):
@@ -433,12 +461,29 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
     return train_step
 
 
-def data_parallel(train_step: Callable) -> Callable:
-    """`train_step` run inside `parallel/mesh.py:data_axis` over the
-    default process group (the plain step in one process)."""
-    @functools.wraps(train_step)
-    def step(*args, **kwargs):
-        with mesh.data_axis(distributed.world()):
-            return train_step(*args, **kwargs)
+def data_parallel(cfg: Config, split_planes: bool = False) -> Callable:
+    """Decorator: the step run inside `parallel/mesh.py:data_axis` over the
+    default process group (the plain step in one process), the ranks of a
+    depth row (`cfg.num_depth_shards`) counted as replicas of their shard.
+    With `split_planes` (ManyDepth) the step also runs inside this rank's
+    `depth_axis`, whose group is built here, when the step is made: every
+    rank makes its step at the same point. Without it (DynamicDepth,
+    DualRefine, which `mal_tpu` does not split either) the depth ranks
+    compute their shard's step alike."""
+    n_depth = cfg.num_depth_shards if distributed.world() > 1 else 1
+    row = (distributed.depth_row(n_depth) if split_planes and n_depth > 1
+           else None)
 
-    return step
+    def wrap(train_step: Callable) -> Callable:
+        @functools.wraps(train_step)
+        def step(*args, **kwargs):
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(
+                    mesh.data_axis(distributed.world(), replicas=n_depth))
+                if row is not None:
+                    stack.enter_context(mesh.depth_axis(*row))
+                return train_step(*args, **kwargs)
+
+        return step
+
+    return wrap

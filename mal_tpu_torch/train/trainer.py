@@ -12,9 +12,10 @@ checkpoint is saved at the end of every `save_frequency`-th epoch.
 
 In a process group (`parallel/distributed.py`, one process per card)
 every process trains on its loader's shard: the state is broadcast from
-rank 0 once, the step is data parallel (`train/step.py`), each rank's
-draws come from its own generator (`rank_seed`), and only rank 0 logs,
-validates and writes checkpoints; every rank's state stays the same.
+rank 0 once, the step is data parallel (`train/step.py`), each data
+shard's draws come from its own generator (`rank_seed` of the data index:
+the ranks of a depth row draw alike), and only rank 0 logs, validates and
+writes checkpoints; every rank's state stays the same.
 
 The loader yields numpy batches; each goes to the card through pinned
 memory with `non_blocking=True`. The trainer records, per step, how long it
@@ -168,7 +169,8 @@ class Trainer:
         # rank 0's state everywhere
         mesh.broadcast_state(self.state)
         self.generator = torch.Generator(device=self.device).manual_seed(
-            distributed.rank_seed(seed, self.rank))
+            distributed.rank_seed(
+                seed, distributed.grid(cfg.num_depth_shards).data_index))
         self.step = 0
         self.loader_wait_s: list[float] = []
         self.step_s: list[float] = []

@@ -176,21 +176,26 @@ def test_entry_points_need_the_card_unless_asked(tree, monkeypatch):
         Trainer(cfg, build_train_loader(cfg))
 
 
-@pytest.mark.parametrize("argv,match", [
-    # the depth axis is refused before any process joins a group
+@pytest.mark.parametrize("argv,error,match", [
+    # refused before any process joins a group: the depth axis in one
+    # process (a coordinator with the default --num_hosts 1, or none) ...
     (["train", "--data_path", "kitti", "--coordinator", "h:1", "--set",
-      "num_depth_shards=2"], "M6"),
-    (["train", "--data_path", "kitti", "--num_hosts", "4", "--set",
-      "num_depth_shards=2"], "M6"),
-    (["train", "--data_path", "kitti", "--host_id", "1", "--set",
-      "num_depth_shards=2"], "M6"),
+      "num_depth_shards=2"], NotImplementedError, "one process.*--coordinator"),
+    # ... and a world that num_depth_shards does not divide
+    (["train", "--data_path", "kitti", "--num_hosts", "3", "--set",
+      "num_depth_shards=2"], ValueError, "does not divide.*--num_hosts 3"),
+    (["train", "--data_path", "kitti", "--coordinator", "h:1", "--num_hosts",
+      "4", "--host_id", "1", "--set", "num_depth_shards=3"], ValueError,
+     "does not divide.*--num_hosts 4"),
     (["train", "--data_path", "kitti", "--set", "method='dualrefine'",
-      "num_depth_shards=2"], "M6"),
+      "num_depth_shards=2"], NotImplementedError, "one process.*--coordinator"),
     # one process: mal_tpu's device mesh, run as one process per card
-    (["train", "--data_path", "kitti", "--set", "num_data_shards=2"], "M6"),
-    (["train", "--data_path", "kitti", "--set", "num_depth_shards=2"], "M6")])
-def test_refusals_name_the_roadmap_item(tree, argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+    (["train", "--data_path", "kitti", "--set", "num_data_shards=2"],
+     NotImplementedError, "M6"),
+    (["train", "--data_path", "kitti", "--set", "num_depth_shards=2"],
+     NotImplementedError, "one process.*--coordinator")])
+def test_refusals_name_the_roadmap_item(tree, argv, error, match):
+    with pytest.raises(error, match=match):
         main(argv + ["--device", "cpu"])
 
 

@@ -135,3 +135,53 @@ def test_confidence_and_lowest_cost():
                                  torch.from_numpy(bins)).numpy(),
         np.asarray(jcv.indices_to_disparity(jnp.asarray(cost),
                                             jnp.asarray(bins))), rtol=1e-7)
+
+
+@pytest.fixture(scope="module")
+def sharded_reference():
+    """`mal_tpu`'s volume at `Config()`'s 96 planes on the path it takes
+    when the planes are sharded, `chunk=D` (`mal_tpu/models/encoders.py:
+    140-145`), with its confidence and lowest-cost disparity."""
+    from mal_tpu.config import Config
+
+    D = Config().num_depth_bins
+    cur, lookup, poses, K, invK = _inputs(rot=0.05)
+    bins = jcv.compute_depth_bins(0.5, 10.0, D)
+    cost, missing = jcv.plane_sweep_cost_volume(
+        *[jnp.asarray(a) for a in (cur, lookup, poses, K, invK)], bins,
+        chunk=D)
+    conf = jcv.confidence_mask_from_cost(cost, missing)
+    disp = jcv.indices_to_disparity(cost, bins)
+    return ((cur, lookup, poses, K, invK, np.asarray(bins)),
+            [np.asarray(a) for a in (cost, missing, conf, disp)])
+
+
+@pytest.mark.parametrize("n", [2, 3, 5])
+def test_split_volume_equals_the_sharded_path(sharded_reference, n):
+    """The depth axis in one process: each of n shares runs the plain K1
+    on its planes alone (96 over 5 is uneven: 20 + 4 x 19), the shares are
+    summed as the row's all-reduce sums them, and the missing -> max fill,
+    the confidence and the lowest-cost disparity then span all 96 planes.
+    The cost at the file's atol 3e-5; the missing mask, confidence and
+    disparity exactly."""
+    inputs, (w_cost, w_missing, w_conf, w_disp) = sharded_reference
+    args = [torch.from_numpy(a) for a in inputs]
+    D = args[-1].shape[0]
+    sizes = [tcv.plane_share(D, i, n) for i in range(n)]
+    assert [s.start for s in sizes] == [0] + [s.stop for s in sizes[:-1]]
+    assert sizes[-1].stop == D
+    before = tk.plane_sweep_diffs.launches
+    shares = [tk.plane_sweep_cost_share(*args, index=i, n=n)
+              for i in range(n)]
+    for s, share in zip(sizes, shares):   # each share writes its planes only
+        outside = torch.ones(D, dtype=torch.bool)
+        outside[s] = False
+        assert share[:, outside].abs().max() == 0
+    cost, missing = tcv.fill_missing(sum(shares))
+    assert tk.plane_sweep_diffs.launches == before
+    np.testing.assert_allclose(cost.numpy(), w_cost, atol=ATOL)
+    np.testing.assert_array_equal(missing.numpy(), w_missing)
+    conf = tcv.confidence_mask_from_cost(cost, missing)
+    np.testing.assert_array_equal(conf.numpy(), w_conf)
+    disp = tcv.indices_to_disparity(cost, args[-1])
+    np.testing.assert_array_equal(disp.numpy(), w_disp)

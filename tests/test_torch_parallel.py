@@ -6,9 +6,12 @@ its half of a global batch of 4 at tests/test_torch_common.py's size and
 its half of the step's random draws, and steps once in each case:
 ManyDepth's default, `pareto`, DynamicDepth (`selec_reproj`, `zero_img`
 and the feature-metric loss on) and DualRefine in float64 (as
-tests/test_torch_dualref_step.py runs it). Each is held against the port's
-own one-process step on the whole batch with the same draws and the same
-starting state (rank 1 starts from other weights, which the broadcast from
+tests/test_torch_dualref_step.py runs it); then both ranks take the whole
+batch as one depth row (1 data x 2 depth, `num_depth_shards=2`), each
+running K1's plain version on 8 of the 16 planes, in ManyDepth's default
+case ("depth"), held against the one-process ManyDepth step. Each is held
+against the port's own one-process step on the whole batch with the same
+draws and the same starting state (rank 1 starts from other weights, which the broadcast from
 rank 0 replaces), which tests/test_torch_*_step.py hold against `mal_tpu`;
 no `mal_tpu` program is built here.
 
@@ -24,8 +27,10 @@ while every other gradient agrees to ~1e-6 relative (the float64
 DualRefine case to ~1e-13). The two ranks end bit for bit equal.
 
 Then the pieces: the global BatchNorm against `BatchNorm2d` on the
-concatenated batch, the reductions of `parallel/mesh.py`, the refusal of a
-batch that does not divide, the step in a one-process group against the
+concatenated batch, the reductions of `parallel/mesh.py` (also with both
+ranks holding the whole batch as replicas, as a depth row's ranks do: the
+duplicated sums cancel in every ratio), the refusal of a batch that does
+not divide, what a depth axis still refuses, the step in a one-process group against the
 plain step, and `cli train` over two processes, where rank 0 alone
 validates and writes the checkpoint.
 
@@ -62,13 +67,17 @@ CASES = {
                          selec_reproj=True, zero_img=True, feat_loss=True),
     "dualrefine": dict(method="dualrefine", deq_iters=4, corr_radius=2,
                        corr_levels=2),
+    # one depth row of both ranks: each takes the whole batch
+    "depth": dict(num_depth_shards=WORLD, batch_size=GLOBAL_B),
 }
+# the one-process step a case is held against, where it is another case's
+REFERENCE = {"depth": "manydepth"}
 TESTS = os.path.dirname(os.path.abspath(__file__))
 TIMEOUT_S = 900
 
 
 def _cfg(case: str) -> Config:
-    return Config(**BASE, **CASES[case])
+    return Config(**{**BASE, **CASES[case]})
 
 
 def _global_inputs(case: str):
@@ -140,8 +149,10 @@ def run_case(case: str, rank: int | None = None, world: int = WORLD,
     state = _state(case, seed=1 if rank == 1 else 0)
     if rank is not None:
         mesh.broadcast_state(state)
-        batch = mesh.shard_batch(batch, rank, world)
-        draws = mesh.shard_batch(draws, rank, world)
+        # the ranks of a depth row take the same shard
+        g = distributed.grid(_cfg(case).num_depth_shards, world, rank)
+        batch = mesh.shard_batch(batch, g.data_index, g.n_data)
+        draws = mesh.shard_batch(draws, g.data_index, g.n_data)
     state, metrics = make_train_step(_cfg(case), "cpu")(
         state, batch, 0.0, draws=draws)
     return _snapshot(state, metrics)
@@ -162,13 +173,15 @@ def _unit_inputs():
     return x, g, values, mask
 
 
-def run_units(rank: int | None = None) -> dict:
+def run_units(rank: int | None = None, replicas: int = 1) -> dict:
     """The global BatchNorm (output, input gradient, parameter gradients,
     running statistics) and the reductions of `parallel/mesh.py`, on
-    rank `rank`'s shard inside a data axis, or on the whole batch."""
+    rank `rank`'s shard inside a data axis, or on the whole batch; with
+    `replicas` = WORLD every rank holds the whole batch, a replica of the
+    one shard, as the ranks of a depth row do."""
     x, g, values, mask = _unit_inputs()
     world = 1 if rank is None else WORLD
-    if rank is not None:
+    if rank is not None and replicas == 1:
         x, g, values, mask = (mesh.shard_batch(a, rank, WORLD)
                               for a in (x, g, values, mask))
     torch.manual_seed(0)
@@ -178,7 +191,7 @@ def run_units(rank: int | None = None) -> dict:
         bn.bias.uniform_(-0.5, 0.5)
         bn.running_var.fill_(2.0)
     x = x.clone().requires_grad_()
-    with mesh.data_axis(world):
+    with mesh.data_axis(world, replicas):
         y = bn(x)
         (y * g).sum().backward()
         mesh.all_reduce_grads(bn.parameters())
@@ -199,7 +212,8 @@ def _rank_main(rank: int, init_file: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     distributed.initialize(f"file://{init_file}", WORLD, rank)
     try:
-        results = {"units": run_units(rank)}
+        results = {"units": run_units(rank),
+                   "replicated_units": run_units(rank, replicas=WORLD)}
         for case in CASES:
             results[case] = run_case(case, rank)
         torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -250,7 +264,8 @@ def runs(tmp_path_factory):
         ref = {"units": run_units(),
                "nudged": run_case("manydepth", nudge=1e-6)}
         for case in CASES:
-            ref[case] = run_case(case)
+            if case not in REFERENCE:
+                ref[case] = run_case(case)
     finally:
         _wait(procs)
     ranks = [torch.load(tmp / f"rank{r}.pt") for r in range(WORLD)]
@@ -288,7 +303,7 @@ def test_ranks_end_bit_identical(runs, case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_step_equals_the_whole_batch_step(runs, case):
     ref, ranks = runs
-    got, want = ranks[0][case], ref[case]
+    got, want = ranks[0][case], ref[REFERENCE.get(case, case)]
     m, w = got["metrics"], want["metrics"]
     assert m.keys() == w.keys()
     _close(m["loss"], w["loss"], rtol=2e-4, what="loss")
@@ -377,6 +392,25 @@ def test_global_values_on_every_rank(runs, key):
         _close(r["units"][key], ref["units"][key], rtol=1e-6, what=key)
 
 
+@pytest.mark.parametrize("key", ["y", "running_mean", "running_var",
+                                 "masked_mean", "batch_mean", "global_mean",
+                                 "global_norm", "element_0"])
+def test_replicated_shards_cancel_in_every_ratio(runs, key):
+    """Both ranks hold the whole batch (a depth row's replicas), and the
+    world-wide reductions count it twice: the BatchNorm output and running
+    statistics, the global mean, norm and element 0 are still the whole
+    batch's on each rank, and the shares of a masked or batch mean still
+    sum to it, at the data axis's bounds."""
+    ref, ranks = runs
+    want = ref["units"][key]
+    if key in ("masked_mean", "batch_mean"):
+        got = [sum(r["replicated_units"][key] for r in ranks)]
+    else:
+        got = [r["replicated_units"][key] for r in ranks]
+    for g in got:
+        _close(g, want, rtol=1e-5, atol=1e-6, what=key)
+
+
 def test_a_batch_that_does_not_divide_is_refused():
     batch = {"color": {"0": torch.zeros(5, 2)}, "K": torch.zeros(5, 4, 4)}
     with pytest.raises(ValueError, match="does not divide"):
@@ -418,10 +452,25 @@ def test_loader_shards_take_the_same_number_of_batches():
     assert len(set(seen)) == 4
 
 
-def test_depth_shards_stay_refused():
+@pytest.mark.parametrize("layout", ["one_process", "world", "batch"])
+def test_depth_shards_stay_refused(layout):
+    """What a depth axis still refuses, each naming the launch: one
+    process (make_train_step there), a world that num_depth_shards does
+    not divide, and a global batch that the data shards do not divide; a
+    world it divides is taken, for every method."""
     cfg = _cfg("manydepth").replace(num_depth_shards=2)
-    with pytest.raises(NotImplementedError, match="M6, the depth axis"):
-        make_train_step(cfg, "cpu")
+    if layout == "one_process":
+        with pytest.raises(NotImplementedError, match="--coordinator"):
+            make_train_step(cfg, "cpu")
+    elif layout == "world":
+        with pytest.raises(ValueError, match="--num_hosts 3"):
+            check_parallel(cfg, 3)
+    else:
+        with pytest.raises(ValueError, match="global batch of 6.*--num_hosts"):
+            check_parallel(cfg, 8, global_batch=6)
+        check_parallel(cfg, 8, global_batch=8)
+    for method in ("manydepth", "dynamicdepth", "dualrefine"):
+        check_parallel(cfg.replace(method=method), 4)
 
 
 def test_one_process_group_step_equals_the_plain_step(tmp_path):
@@ -446,6 +495,10 @@ def test_rank_devices_and_seeds(monkeypatch):
     assert distributed.rank_device("cuda", 2) == torch.device("cuda", 0)
     assert distributed.rank_seed(7, 0) == 7
     assert len({distributed.rank_seed(7, r) for r in range(4)}) == 4
+    # 2 data x 3 depth: rank r at data r // 3, depth r % 3
+    assert [tuple(distributed.grid(3, 6, r)) for r in (0, 2, 3, 5)] == [
+        (2, 3, 0, 0), (2, 3, 0, 2), (2, 3, 1, 0), (2, 3, 1, 2)]
+    assert tuple(distributed.grid(2, 1, 0)) == (1, 1, 0, 0)
     assert distributed.coordinator_url("10.0.0.1:29500") == \
         "tcp://10.0.0.1:29500"
     with pytest.raises(ValueError, match="host:port"):

@@ -127,9 +127,9 @@ def test_k5_plain_matches_pallas_kernel_and_per_level():
 # The modules, with the same weights
 # --------------------------------------------------------------------------
 
-def _random_variables(model, x, seed=0):
+def _random_variables(model, *inputs, seed=0):
     """Random numpy values on the shapes of `model.init`'s tree."""
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), x)
+    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *inputs)
     rng = np.random.RandomState(seed)
 
     def draw(path, s):
