@@ -21,12 +21,17 @@ Phases, each of which must pass or the script exits non-zero:
    masks) in bf16 and fp32, beside
    the port's unfused bf16 block, with the bf16 time of one fast step's 72
    launches of each (with `--profile` also every bf16 call's kernels), K4
-   (`window_attention`) at the same four stages in fp32 beside fp32 SDPA,
-   the shifted stages also without their masks, with the time of one fp32
-   hint step's 72 launches, K5 (`ms_deform_attn_core`, batch 12, 2520
-   queries, 8 heads of 32, levels 6x20 / 12x40 / 24x80, 4 points; also x 18
-   launches a step) and K5b
-   (`deform_sample_fused`, the same work sample-major);
+   (`window_attention`) in fp32 at the same four stages (the tiled route)
+   and at Swin-T's four (MaskFormer v1, batch 2 at 256x448: the w7 route),
+   each also on the loop route and beside fp32 SDPA, the shifted stages
+   also without their masks: the device time of each call (torch.profiler)
+   and the caller's time (median and min-max of 7 rounds of 50 calls),
+   with the sums over one fp32 hint step's 72 launches and one v1
+   forward's 12, K5 (`ms_deform_attn_core`, batch 12, 2520 queries, 8
+   heads of 32, levels 6x20 / 12x40 / 24x80, 4 points; also x 18 launches
+   a step) and K5b (`deform_sample_fused`, the same work sample-major, on
+   its staged and its gather route); the registers and spills of K4's and
+   K5b's kernels;
 4. small-input references, GPU against CPU (the plain PyTorch path): one
    training step and one `eval_forward` at 64x96; one temporal step at
    64x96 with a Swin-T Mask2Former; the same temporal step in fast mode;
@@ -144,9 +149,9 @@ Phases, each of which must pass or the script exits non-zero:
    `semantic_tta` at (0.75, 1, 1.25) with flip, each variant timed (K4 =
    24, K5 = 6 a forward);
 12. MaskFormer v1 at `mal_tpu`'s defaults (Swin-T, 100 queries, 80
-   classes, fp32), batch 2 at 256x448: K4 at Swin-T's four stage shapes
-   beside SDPA (with the sum over a forward's 12 launches), every K4 call
-   of one forward against its plain version at phase 11's tolerance, then
+   classes, fp32), batch 2 at 256x448: every K4 call of one forward
+   against its plain version at phase 11's tolerance, each on the w7
+   route, then
    counted a forward (K4 = 12, every other kernel 0) with semantic and
    panoptic inference on its output, and `PerPixelBaselineHead` with the
    FPN and with the transformer-encoder pixel decoder on the backbone's
@@ -192,9 +197,13 @@ K6_MAX_FLIPS = 0
 # land next door on one side
 DYN_LOSS_RTOL = 1e-3
 DYN_MAX_DOMD_SHARE = 1e-3   # share of DOMD frame values off by more than 1e-4
-# K4: outputs of O(1); the kernel's online softmax and 32-wide dot products
-# round in another order than the plain version's matmuls
+# K4: outputs of O(1); the kernels' softmax and 32-wide dot products round
+# in another order than the plain version's matmuls
 K4_ATOL = 2e-5
+# K4's caller's time: rounds of back-to-back calls, each round bracketed by
+# CUDA events (at ~0.03 ms a call one 20-call mean moved 2x between runs)
+K4_ROUNDS = 7
+K4_CALLS = 50
 # K5: the kernel computes a sample's coordinate as x * w - 0.5, the plain
 # version as grid_sample's ((2x - 1 + 1) * w - 1) / 2; the ~1e-7 relative
 # difference moves bilinear weights on values of O(1), summed over 12 samples
@@ -561,22 +570,52 @@ def small_dynamic_reference_phase() -> None:
     check(d_err <= 1e-3, "GPU eval disparity != CPU eval disparity")
 
 
+def _rounds_ms(fns: dict, rounds: int = K4_ROUNDS,
+               calls: int = K4_CALLS) -> dict[str, list[float]]:
+    """The caller's time of each of `fns` (name -> fn): `rounds` rounds of
+    `calls` back-to-back calls bracketed by CUDA events (`cuda_time_ms`),
+    the functions in turns within each round. Once the host's cost of a
+    call exceeds its kernel's, this is the host's time."""
+    from mal_tpu_torch.utils.profiling import cuda_time_ms
+
+    out = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            out[name].append(cuda_time_ms(fn, calls, warmup=1))
+    return out
+
+
+def _spread(times: list[float]) -> dict:
+    return {"median": statistics.median(times), "min": min(times),
+            "max": max(times)}
+
+
+def _spread_text(d: dict) -> str:
+    return f"{d['median']:.4f} ({d['min']:.4f}-{d['max']:.4f})"
+
+
 def _k4_stage_rows(label: str, stages: dict, ws: int, images: int,
                    launches: dict) -> tuple[list[dict], dict]:
     """K4 at each of `stages` (stage -> (padded map, real map, C, heads,
     whether its odd blocks shift)) for `images` images of window `ws`, in
-    fp32, against its plain version, timed beside fp32 SDPA (the shifted
-    stages with their masks, and also without them); with the sum over
-    `launches` (stage -> launches) of each time."""
+    fp32, on its route (`window_attention_route(ws)`) and on the loop
+    route, each against the plain version and beside fp32 SDPA: the device
+    time per call of each (torch.profiler, SDPA's kernels summed) and the
+    caller's time (`_rounds_ms`: median and min-max); the shifted stages
+    also without their masks. With the sum over `launches` (stage ->
+    launches) of the route's times."""
     import torch
     import torch.nn.functional as F
 
     from mal_tpu_torch.ops.cuda.window_attention import (
-        relative_position_index, window_attention, window_attention_reference)
+        relative_position_index, window_attention, window_attention_reference,
+        window_attention_route)
     from mal_tpu_torch.segment.swin import shift_mask
     from mal_tpu_torch.utils.profiling import cuda_time_ms
 
     N = ws * ws
+    route = window_attention_route(ws)
+    routes = [route] + (["loop"] if route != "loop" else [])
     idx = torch.from_numpy(relative_position_index(ws)).cuda()
     shapes = []
     for stage, ((Hp, Wp), _, C, heads, shifted) in stages.items():
@@ -587,21 +626,22 @@ def _k4_stage_rows(label: str, stages: dict, ws: int, images: int,
         qkv = torch.randn((nW, N, 3 * C), generator=g, device="cuda")
         table = 0.02 * torch.randn(((2 * ws - 1) ** 2, heads), generator=g,
                                    device="cuda")
-        out = window_attention(qkv, table, mask, heads)
-        torch.cuda.synchronize()
         plain = window_attention_reference(qkv, table, mask, heads)
-        err = (out - plain).abs().max().item()
+        errs = {}
+        for r in reversed(routes):   # the route's own output kept as `out`
+            out = window_attention(qkv, table, mask, heads, route=r)
+            torch.cuda.synchronize()
+            errs[r] = (out - plain).abs().max().item()
+            check(torch.isfinite(out).all().item(),
+                  f"K4 ({r}) output not finite")
+            check(errs[r] <= K4_ATOL, f"K4 ({r}) disagrees with its plain "
+                  f"version at {label} stage {stage}: {errs[r]}")
         print(f"K4 window_attention {label} stage {stage} at nW={nW} "
               f"heads={heads} N={N} d={C // heads}"
-              f"{f' nm={nm}' if shifted else ', no mask'}: "
-              f"max_abs_err={err:.3e} (atol {K4_ATOL})")
-        check(torch.isfinite(out).all().item(), "K4 output not finite")
-        check(err <= K4_ATOL, f"K4 disagrees with its plain version at "
-              f"{label} stage {stage}: {err}")
+              f"{f' nm={nm}' if shifted else ', no mask'}: max_abs_err "
+              + ", ".join(f"{r} {e:.3e}" for r, e in errs.items())
+              + f" (atol {K4_ATOL})")
         del plain
-
-        ms = cuda_time_ms(lambda: window_attention(qkv, table, mask, heads),
-                          20)
         plain_ms = cuda_time_ms(
             lambda: window_attention_reference(qkv, table, mask, heads), 3, 1)
         # the library yardstick: one SDPA call on (nW, heads, N, d) q, k, v
@@ -614,15 +654,24 @@ def _k4_stage_rows(label: str, stages: dict, ws: int, images: int,
         attn_mask = per_window.expand(nm, heads, N, N).repeat(images, 1, 1, 1)
         lib_out = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask)
         lib_err = (lib_out.transpose(1, 2).reshape(nW, N, C) - out).abs().max()
-        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=attn_mask), 20)
-        del q, k, v, attn_mask, lib_out
-        text = ""
+        fns = {r: (lambda r=r: window_attention(qkv, table, mask, heads,
+                                                route=r)) for r in routes}
+        fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask)
         if mask is not None:
-            # the same call without the mask: what reading the mask costs
-            unmasked_ms = cuda_time_ms(
-                lambda: window_attention(qkv, table, None, heads), 20)
-            text = f", without the mask {unmasked_ms:.4f} ms"
+            # the route without the mask: what reading the mask costs
+            fns["unmasked"] = lambda: window_attention(qkv, table, None,
+                                                       heads)
+        device, names = {}, {}
+        for name, fn in fns.items():
+            parts = _sub_kernel_ms(fn)
+            device[name] = sum(ms for _, ms in parts)
+            names[name] = "+".join(n for n, _ in parts)
+        caller = {name: _spread(t) for name, t in _rounds_ms(fns).items()}
+        del q, k, v, attn_mask, lib_out
+        for r in routes:
+            check(f"window_attention_{'' if r == 'loop' else r + '_'}kernel"
+                  in names[r], f"K4 route {r} launched {names[r]}")
         # least bytes: qkv, table and mask read once, out written once
         n_bytes = 4 * (qkv.numel() + table.numel() + out.numel()
                        + (0 if mask is None else mask.numel()))
@@ -630,40 +679,75 @@ def _k4_stage_rows(label: str, stages: dict, ws: int, images: int,
         # score for bias, mask, max, exp, sum and the division
         n_ops = nW * heads * (4 * N * N * d + 5 * N * N)
         bound = _bound(n_bytes, n_ops, PEAK_FP32_FLOPS)
-        print(f"K4 {label} stage {stage}: {ms:.4f} ms{text}, plain "
-              f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms (max diff "
-              f"{lib_err.item():.2e}); {n_ops / ms / 1e9:.1f} TFLOP/s; "
+        print(f"K4 {label} stage {stage}, device ms a call (torch.profiler) "
+              f"/ caller's ms a call (median (min-max) of {K4_ROUNDS} rounds"
+              f" of {K4_CALLS}): "
+              + "; ".join(f"{name} {device[name]:.4f} / "
+                          f"{_spread_text(caller[name])}"
+                          for name in fns)
+              + f"; plain {plain_ms:.4f} ms; SDPA max diff "
+              f"{lib_err.item():.2e} ({names['sdpa']}); "
+              f"{n_ops / device[route] / 1e9:.1f} TFLOP/s on {route}; "
               f"{bound['text']}")
-        shapes.append({"stage": stage, "nW": nW, "heads": heads, "N": N,
-                       "max_abs_err": err, "ms": ms,
-                       "plain_ms": plain_ms, "library_ms": library_ms,
-                       "bound_ms": bound["bound_ms"],
-                       "bound_by": bound["bound_by"]})
+        row = {"stage": stage, "nW": nW, "heads": heads, "N": N,
+               "route": route, "max_abs_err": errs[route],
+               "ms": caller[route]["median"], "device_ms": device[route],
+               "caller_ms": caller[route], "plain_ms": plain_ms,
+               "library_ms": caller["sdpa"]["median"],
+               "library_device_ms": device["sdpa"],
+               "library_caller_ms": caller["sdpa"],
+               "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+        if route != "loop":
+            row["loop"] = {"max_abs_err": errs["loop"],
+                           "device_ms": device["loop"],
+                           "caller_ms": caller["loop"]}
+        if mask is not None:
+            row["unmasked"] = {"device_ms": device["unmasked"],
+                               "caller_ms": caller["unmasked"]}
+        shapes.append(row)
         del qkv, out
     total = {key: sum(launches[r["stage"]] * r[key] for r in shapes)
-             for key in ("ms", "library_ms", "bound_ms")}
+             for key in ("ms", "device_ms", "library_ms",
+                         "library_device_ms", "bound_ms")}
     return shapes, total
 
 
 def k4_phase() -> dict:
     """K4 at the four stages of Swin-L in fp32 (stages 0 and 1 shifted with
-    their masks, and also timed without them), beside fp32 SDPA, with the
-    time of one fp32 hint step's launches."""
+    their masks, and also timed without them), with the time of one fp32
+    hint step's launches, and at the four stages of Swin-T (MaskFormer v1,
+    window 7, every stage shifted), with the time of one v1 forward's
+    launches; each on its route and the loop route, beside fp32 SDPA."""
     shapes, per_step = _k4_stage_rows("Swin-L", SWIN_L_STAGES, SWIN_WINDOW,
                                       12, SWIN_L_LAUNCHES)
     print(f"K4 per fp32 hint step (launches x ms over the four stages, "
-          f"{sum(SWIN_L_LAUNCHES.values())} launches): {per_step['ms']:.4f} ms;"
-          f" SDPA {per_step['library_ms']:.4f} ms; bound "
+          f"{sum(SWIN_L_LAUNCHES.values())} launches): device "
+          f"{per_step['device_ms']:.4f} ms, caller {per_step['ms']:.4f} ms;"
+          f" SDPA {per_step['library_device_ms']:.4f} / "
+          f"{per_step['library_ms']:.4f} ms; bound "
           f"{per_step['bound_ms']:.4f} ms")
+    t_shapes, per_forward = _k4_stage_rows("Swin-T", SWIN_T_STAGES,
+                                           SWIN_T_WINDOW, V1_BATCH,
+                                           SWIN_T_LAUNCHES)
+    print(f"K4 per MaskFormer v1 forward (launches x ms over the four "
+          f"stages, {K4_V1_A_FORWARD} launches): device "
+          f"{per_forward['device_ms']:.4f} ms, caller "
+          f"{per_forward['ms']:.4f} ms; SDPA "
+          f"{per_forward['library_device_ms']:.4f} / "
+          f"{per_forward['library_ms']:.4f} ms; bound "
+          f"{per_forward['bound_ms']:.4f} ms")
+    for line in ptxas_usage("window_attention", "window_attention"):
+        print(f"K4 {line}")
     main = shapes[0]
     return {"name": "window_attention", "route": "cuda",
             "source": "mal_tpu_torch/csrc/window_attention.cu",
             "replaces": "mal_tpu/ops/pallas/window_attention.py:64",
-            "max_abs_err": max(r["max_abs_err"] for r in shapes),
+            "max_abs_err": max(r["max_abs_err"] for r in shapes + t_shapes),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "per_fp32_step_ms": per_step,
-            "shapes": shapes}
+            "shapes": shapes, "swin_t_shapes": t_shapes,
+            "per_v1_forward_ms": per_forward}
 
 
 def k5_phase() -> dict:
@@ -754,8 +838,11 @@ def _bound(n_bytes: float, n_ops: float, peak_flops: float) -> dict:
 
 
 def _sub_kernel_ms(fn, reps: int = 5) -> list[tuple[str, float]]:
-    """Device time per call of each kernel fn() launches, in launch order,
-    from torch.profiler: [(kernel name, ms), ...]."""
+    """Device time per call of each kernel fn() launches, by kernel name in
+    the order of first launch, from torch.profiler: [(kernel name, ms),
+    ...]. A name's time is its mean over the calls' events times its
+    launches a call, so an event the profiler drops (it has dropped one in
+    twenty) moves no number much."""
     import torch
     from torch.profiler import ProfilerActivity, profile as tprofile
 
@@ -770,14 +857,14 @@ def _sub_kernel_ms(fn, reps: int = 5) -> list[tuple[str, float]]:
                      if e.device_type == torch.autograd.DeviceType.CUDA
                      and e.name != "Buffer Flush"),
                     key=lambda e: e.time_range.start)
-    names = [e.name.replace("(anonymous namespace)::", "").split("(")[0][:72]
-             for e in events]
-    if not events or len(events) % reps:
-        raise RuntimeError(f"{len(events)} kernel events over {reps} calls")
-    per = len(events) // reps
-    return [(names[i], sum(events[r * per + i].time_range.elapsed_us()
-                           for r in range(reps)) / reps / 1e3)
-            for i in range(per)]
+    if not events:
+        raise RuntimeError(f"no kernel events over {reps} calls")
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0][:72]
+        by_name.setdefault(name, []).append(e.time_range.elapsed_us())
+    return [(name, statistics.fmean(us) * max(1, round(len(us) / reps)) / 1e3)
+            for name, us in by_name.items()]
 
 
 def _print_breakdown(what: str, parts: list[tuple[str, float]]) -> None:
@@ -1011,15 +1098,20 @@ def k3_phase(profile: bool = False) -> dict:
 def k5b_phase() -> dict:
     """K5b at the pixel decoder's shapes in the sample-major layout: 96
     (batch x head) groups of 32 channels, 2520 queries x 4 points = 10,080
-    samples a group in 5 tiles of 2048, the tail padded with aw = 0."""
+    samples a group in 5 tiles of 2048, the tail padded with aw = 0. Both
+    routes (`major_staged_channels` takes the staged one here), each
+    against the plain version, with device and caller's times."""
     import torch
 
     from mal_tpu_torch.ops.cuda.deform_sample import (
-        deform_sample_fused, deform_sample_fused_reference)
+        deform_sample_fused, deform_sample_fused_reference,
+        major_staged_channels)
     from mal_tpu_torch.utils.profiling import cuda_time_ms
 
     G, ch, T, S, real = 96, 32, 5, 2048, 10080
     shapes = ((6, 20), (12, 40), (24, 80))
+    check(major_staged_channels(sum(h * w for h, w in shapes), ch) == 8,
+          "K5b would not take its staged route at the phase's shapes")
     g = torch.Generator(device="cuda").manual_seed(9)
     vms = [torch.randn((G, h * ch, w), generator=g, device="cuda")
            for h, w in shapes]
@@ -1029,17 +1121,36 @@ def k5b_phase() -> dict:
     aw[..., real:] = 0.0                              # the padded tail
     aw = aw.reshape(G, 3, T, S).transpose(1, 2).contiguous()
     args = (*vms, x, y, aw, shapes, ch)
-    out = deform_sample_fused(*args)
-    torch.cuda.synchronize()
     plain = deform_sample_fused_reference(*args)
-    err = (out - plain).abs().max().item()
+    routes = ("staged", "gather")
+    errs, outs = {}, {}
+    for r in routes:
+        outs[r] = deform_sample_fused(*args, route=r)
+        torch.cuda.synchronize()
+        errs[r] = (outs[r] - plain).abs().max().item()
+        check(torch.isfinite(outs[r]).all().item(),
+              f"K5b ({r}) output not finite")
+        check(errs[r] <= K5B_ATOL,
+              f"K5b ({r}) disagrees with its plain version: {errs[r]}")
+    check(outs["staged"].abs().max().item() > 1.0, "K5b sampled nothing")
+    same = torch.equal(outs["staged"], outs["gather"])
     print(f"K5b deform_sample_fused at G={G} T={T} S={S} ch={ch} levels="
-          f"{shapes}: max_abs_err={err:.3e} (atol {K5B_ATOL})")
-    check(torch.isfinite(out).all().item(), "K5b output not finite")
-    check(err <= K5B_ATOL, f"K5b disagrees with its plain version: {err}")
-    check(out.abs().max().item() > 1.0, "K5b sampled nothing")
+          f"{shapes}: max_abs_err staged {errs['staged']:.3e}, gather "
+          f"{errs['gather']:.3e} (atol {K5B_ATOL}); the two routes equal "
+          f"to the bit: {same}")
+    del plain, outs
 
-    ms = cuda_time_ms(lambda: deform_sample_fused(*args), 20)
+    fns = {r: (lambda r=r: deform_sample_fused(*args, route=r))
+           for r in routes}
+    device, names = {}, {}
+    for r, fn in fns.items():
+        parts = _sub_kernel_ms(fn)
+        device[r] = sum(ms for _, ms in parts)
+        names[r] = "+".join(n for n, _ in parts)
+    check("major_staged_kernel" in names["staged"]
+          and "major_kernel" in names["gather"],
+          f"K5b routes launched {names}")
+    caller = {r: _spread(t) for r, t in _rounds_ms(fns, calls=20).items()}
     plain_ms = cuda_time_ms(lambda: deform_sample_fused_reference(*args), 3)
     # corners inside their level map: what this data makes the kernel read
     sizes = torch.tensor([[w, h] for h, w in shapes], device="cuda")
@@ -1049,17 +1160,27 @@ def k5b_phase() -> dict:
               for i in range(2) for d in (0, 1)]
     corners = sum(((inside[a] & inside[2 + b]).sum().item()
                    for a in (0, 1) for b in (0, 1)))
-    n_bytes = 4 * (sum(v.numel() for v in vms) + 3 * x.numel() + out.numel())
+    n_bytes = 4 * (sum(v.numel() for v in vms) + 3 * x.numel()
+                   + G * T * ch * S)
     n_ops = x.numel() * (18 + 2 * ch) + corners * 2 * ch
     bound = _bound(n_bytes, n_ops, PEAK_FP32_FLOPS)
-    print(f"K5b time {ms:.4f} ms, plain {plain_ms:.4f} ms; {corners} of "
-          f"{4 * x.numel()} corners inside; {bound['text']}")
+    print(f"K5b device ms a call (torch.profiler) / caller's ms a call "
+          f"(median (min-max) of {K4_ROUNDS} rounds of 20): "
+          + "; ".join(f"{r} {device[r]:.4f} / {_spread_text(caller[r])}"
+                      for r in routes)
+          + f"; plain {plain_ms:.4f} ms; {corners} of {4 * x.numel()} "
+          f"corners inside; {bound['text']}")
+    for line in ptxas_usage("deform_sample", "major"):
+        print(f"K5b {line}")
     return {"name": "deform_sample_fused", "route": "cuda",
             "source": "mal_tpu_torch/csrc/deform_sample.cu",
             "replaces": "mal_tpu/ops/pallas/deform_sample.py:213",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max(errs.values()), "ms": caller["staged"]["median"],
+            "device_ms": device["staged"], "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
-            "library_ms": None}
+            "library_ms": None,
+            "routes": {r: {"max_abs_err": errs[r], "device_ms": device[r],
+                           "caller_ms": caller[r]} for r in routes}}
 
 
 def small_temporal_reference_phase(fast: bool = False) -> None:
@@ -2769,7 +2890,7 @@ def _compare_kernels(records: list):
     from mal_tpu_torch.ops.cuda.deform_sample import (
         ms_deform_attn_core_per_level, staged_channels)
     from mal_tpu_torch.ops.cuda.window_attention import (
-        window_attention_reference)
+        window_attention_reference, window_attention_route)
     from mal_tpu_torch.segment import msdeform, swin
 
     k4, k5 = swin.window_attention, msdeform.ms_deform_attn_core
@@ -2779,8 +2900,8 @@ def _compare_kernels(records: list):
         plain = window_attention_reference(qkv, table, mask, heads)
         records.append(("window_attention", tuple(qkv.shape),
                         (out - plain).abs().max().item(),
-                        plain.abs().max().item(), "tiled" if int(round(
-                            qkv.shape[1] ** 0.5)) == 12 else "loop"))
+                        plain.abs().max().item(), window_attention_route(
+                            int(round(qkv.shape[1] ** 0.5)))))
         return out
 
     def k5_checked(value, shapes, locs, aw):
@@ -2931,9 +3052,9 @@ K4_V1_A_FORWARD = sum(SWIN_T_LAUNCHES.values())
 
 def maskformer_v1_phase(kernels: list, every: list) -> dict[str, dict]:
     """MaskFormer v1 at `mal_tpu`'s defaults (Swin-T, 100 queries, 80
-    classes, fp32, seeded weights), batch 2 at 256x448: first K4 at Swin-T's
-    four stage shapes beside SDPA (`_k4_stage_rows`), then every K4 call of
-    one forward against its plain version (at most K4_ATOL times the plain
+    classes, fp32, seeded weights), batch 2 at 256x448 (K4 at Swin-T's four
+    stage shapes is timed in `k4_phase`): every K4 call of one forward
+    against its plain version (at most K4_ATOL times the plain
     output's largest value, at least 1); then, counted, a forward (K4 = 12,
     every other kernel 0) with semantic and panoptic inference on its
     output, and `PerPixelBaselineHead` with the FPN and with the
@@ -2948,18 +3069,6 @@ def maskformer_v1_phase(kernels: list, every: list) -> dict[str, dict]:
                                                      PerPixelBaselineHead)
 
     t_phase = time.perf_counter()
-    shapes, per_forward = _k4_stage_rows("Swin-T", SWIN_T_STAGES,
-                                         SWIN_T_WINDOW, V1_BATCH,
-                                         SWIN_T_LAUNCHES)
-    print(f"K4 per MaskFormer v1 forward (launches x ms over the four "
-          f"stages, {K4_V1_A_FORWARD} launches): {per_forward['ms']:.4f} ms;"
-          f" SDPA {per_forward['library_ms']:.4f} ms; bound "
-          f"{per_forward['bound_ms']:.4f} ms")
-    for k in kernels:
-        if k["name"] == "window_attention":
-            k["swin_t_shapes"] = shapes
-            k["per_v1_forward_ms"] = per_forward
-
     model = MaskFormerV1(generator=torch.Generator().manual_seed(3))
     g = torch.Generator(device="cuda").manual_seed(13)
     images = torch.rand((V1_BATCH, V1_HEIGHT, V1_WIDTH, 3), generator=g,
@@ -2978,6 +3087,8 @@ def maskformer_v1_phase(kernels: list, every: list) -> dict[str, dict]:
           f"{worst:.3e} (atol {K4_ATOL})")
     check(worst <= K4_ATOL, f"K4 disagrees with its plain version inside "
           f"MaskFormer v1: {worst}")
+    check({r[4] for r in rows} == {"w7"}, f"MaskFormer v1's K4 calls took "
+          f"the routes {sorted({r[4] for r in rows})}, not w7 alone")
     for k in kernels:
         if k["name"] == "window_attention":
             k["v1_max_abs_err"] = max(r[2] for r in rows)

@@ -1,5 +1,6 @@
 // Multi-scale deformable attention sampling, forward only: kernel K5, and
-// below it kernel K5b, the same sampling in a sample-major layout.
+// below it kernel K5b, the same sampling in a sample-major layout (its two
+// routes and what bounds each are described there).
 //
 // Replaces the TPU kernel mal_tpu/ops/pallas/deform_sample.py:
 // deform_sample_fused_v4 (called through
@@ -64,6 +65,8 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
+#include <cstdint>
 
 #include "hopper.cuh"
 
@@ -294,12 +297,49 @@ __global__ void __launch_bounds__(kStagedThreads)
 // one point. vm_l (G, h_l * ch, w_l) holds row r of level l in rows
 // r * ch .. r * ch + ch; x, y, aw are (G, T, 3, S).
 //
-// Bound by bytes, like K5: out (G, T, ch, S) is ch times larger than each of
-// the three coordinate inputs and is written once. One thread per sample: it
-// computes the 12 corner offsets and weights (with aw folded in) once, then
-// walks the ch channels, so a warp reads 32 consecutive samples' coordinates
-// and writes 32 consecutive floats per channel. The TPU kernel's one-hot
-// matmuls and per-row masks are not carried over.
+// What bounds it on an H100 at the pixel decoder's shapes (96 groups of 32
+// channels, levels 6x20 / 12x40 / 24x80, 5 tiles of 2048 samples): values
+// (31 MB), coordinates and weights (35 MB) read once and out (126 MB)
+// written once, 0.057 ms at 3.35 TB/s, against ~1 GFLOP. So it is bound by
+// bytes, and in practice by the corner reads: 2.9 M sample-levels x 4
+// corners x 32 channels, random 4-byte reads.
+//
+// Two kernels, chosen by the wrapper (ops/cuda/deform_sample.py:
+// major_staged_channels):
+//
+// deform_sample_major_staged_kernel ("staged"), where a group's slice of 8
+// channels fits in a block's shared memory (tokens x 32 bytes: 80.6 KB at
+// the shapes above, two blocks an SM; up to 7,264 tokens) and ch is a
+// multiple of 8. A persistent grid walks the (group, channel slice, sample)
+// space in contiguous ranges, the 4 slices of a group next to each other,
+// so that blocks working at once share a group and the coordinates' second
+// to fourth reads come from L2. Per slice:
+// - staging, transposed on the way in: the global layout is channel-major
+//   (a channel's row of w_l floats contiguous), the shared one token-major
+//   (8 channels, 32 bytes a token, so that a corner is two 16-byte reads,
+//   its chunks XOR-swizzled by (token / 4) % 2 as in K5's staged kernel,
+//   where the 32 lanes' random corners then spread over all 8 bank quads).
+//   cp.async cannot transpose, so a thread loads through registers, 8 loads
+//   in flight: 4 consecutive tokens of one channel as a float4 where a
+//   level's rows are 16-byte aligned, 4-byte values elsewhere, and stores
+//   them with every lane of the warp in its own bank;
+// - sampling: one sample a thread, 256 consecutive samples a round (their
+//   coordinates are coalesced reads, loaded a round ahead); each level's 4
+//   corner offsets and weights (aw folded in) are computed once for all 8
+//   channels, the corners read from shared memory, and the 8 channels
+//   written to out (G, T, ch, S) as 8 coalesced rows. The arithmetic is the
+//   gather kernel's, operation for operation, so both give the same bits.
+// What holds it, reckoned from the code and not measured: the corners'
+// shared-memory reads at random tokens.
+//
+// deform_sample_major_kernel ("gather"), where a slice does not fit or ch
+// is not a multiple of 8: one thread per sample computes the 12 corner
+// offsets and weights once, then walks the ch channels, reading each corner
+// from L2 as a scattered 4-byte load (lanes at random samples touch
+// distinct 32-byte sectors), so that a warp writes 32 consecutive floats
+// per channel.
+//
+// The TPU kernel's one-hot matmuls and per-row masks are not carried over.
 constexpr int kMajorLevels = 3;
 constexpr int kMajorThreads = 128;
 
@@ -364,13 +404,223 @@ __global__ void deform_sample_major_kernel(const float* __restrict__ x,
   }
 }
 
+constexpr int kMajorStagedThreads = 256;  // samples a round, one a thread
+constexpr int kMajorChannels = 8;         // channels of a staged slice
+constexpr int kStageBatch = 8;            // loads a thread has in flight
+
+// Store value `v` of channel c, token t into the staged slice (tokens, 8):
+// chunk c / 4 of token t sits at chunk (c / 4) ^ ((t / 4) % 2).
+__device__ __forceinline__ void put_staged(float* slice, int t, int c,
+                                           float v) {
+  slice[t * kMajorChannels + 4 * ((c >> 2) ^ ((t >> 2) & 1)) + (c & 3)] = v;
+}
+
+// Stage one level's 8-channel slice, transposed from channel-major rows to
+// token-major: where the level's rows are 16-byte aligned (w_l % 4 == 0) a
+// thread loads 4 consecutive tokens of one channel as a float4, lanes
+// taking 8 channels x 4 quads of tokens, and lane (c, quad) writes its 4
+// values in the order quad, quad + 1, ... (mod 4), so that every store of
+// the warp falls in its own bank; elsewhere 4-byte loads, a warp taking 8
+// consecutive tokens of 4 channels. Each thread keeps kStageBatch loads in
+// flight before it stores any.
+__device__ __forceinline__ void stage_level(float* slice,
+                                            const float* __restrict__ vb,
+                                            int n, int wl, int ch, int start) {
+  constexpr int CG = kMajorChannels;
+  constexpr int kStep = kMajorStagedThreads * kStageBatch;
+  if (wl % 4 == 0 && reinterpret_cast<uintptr_t>(vb) % 16 == 0) {
+    const int items = n / 4 * CG;  // (quad, channel)
+    for (int i0 = threadIdx.x; i0 < items; i0 += kStep) {
+      float4 v[kStageBatch];
+#pragma unroll
+      for (int b = 0; b < kStageBatch; ++b) {
+        const int i = i0 + b * kMajorStagedThreads;
+        if (i < items) {
+          const int tl = 4 * (i >> 3);
+          const int r = tl / wl;
+          v[b] = __ldg(reinterpret_cast<const float4*>(
+              vb + (static_cast<size_t>(r) * ch + (i & 7)) * wl + tl -
+              r * wl));
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kStageBatch; ++b) {
+        const int i = i0 + b * kMajorStagedThreads;
+        if (i < items) {
+          const int qd = i >> 3;
+          const int c = i & 7;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int k = (e + qd) & 3;
+            const float x = k == 0 ? v[b].x : k == 1 ? v[b].y
+                            : k == 2 ? v[b].z : v[b].w;
+            put_staged(slice, start + 4 * qd + k, c, x);
+          }
+        }
+      }
+    }
+  } else {
+    const int items = ((n + 7) & ~7) * CG;  // 8 tokens x 8 channels a block
+    for (int i0 = threadIdx.x; i0 < items; i0 += kStep) {
+      float v[kStageBatch];
+#pragma unroll
+      for (int b = 0; b < kStageBatch; ++b) {
+        const int i = i0 + b * kMajorStagedThreads;
+        const int tl = (i >> 6) * 8 + (i & 7);
+        if (i < items && tl < n) {
+          const int r = tl / wl;
+          v[b] = __ldg(vb + (static_cast<size_t>(r) * ch + ((i >> 3) & 7)) *
+                                wl + tl - r * wl);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kStageBatch; ++b) {
+        const int i = i0 + b * kMajorStagedThreads;
+        const int tl = (i >> 6) * 8 + (i & 7);
+        if (i < items && tl < n)
+          put_staged(slice, start + tl, (i >> 3) & 7, v[b]);
+      }
+    }
+  }
+}
+
+// one sample's coordinates and weights at the 3 levels
+struct MajorPoint {
+  float x[kMajorLevels];
+  float y[kMajorLevels];
+  float a[kMajorLevels];
+};
+
+__device__ __forceinline__ void load_major_point(
+    MajorPoint& pt, const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ aw, size_t gt, int s, int S) {
+#pragma unroll
+  for (int l = 0; l < kMajorLevels; ++l) {
+    const size_t at = (gt * kMajorLevels + l) * S + s;
+    pt.x[l] = __ldg(x + at);
+    pt.y[l] = __ldg(y + at);
+    pt.a[l] = __ldg(aw + at);
+  }
+}
+
+// K5b from a slice staged in shared memory: a unit is one (slice, sample),
+// slice = g * (ch / 8) + channel group, sample = t * S + s; `units` of
+// them in all, this block's a contiguous range. level_start: each level's
+// first token in the slice.
+__global__ void __launch_bounds__(kMajorStagedThreads)
+    deform_sample_major_staged_kernel(const float* __restrict__ x,
+                                      const float* __restrict__ y,
+                                      const float* __restrict__ aw,
+                                      float* __restrict__ out, MajorLevels lv,
+                                      int3 level_start, int T, int S, int ch,
+                                      long long units) {
+  // (tokens, 8): chunk c (4 channels) of token t at chunk c ^ ((t / 4) % 2)
+  extern __shared__ __align__(16) float slice[];
+  constexpr int CG = kMajorChannels;
+  const int starts[kMajorLevels] = {level_start.x, level_start.y,
+                                    level_start.z};
+  const int groups = ch / CG;
+  const long long TS = static_cast<long long>(T) * S;
+  const long long begin = units * blockIdx.x / gridDim.x;
+  const long long end = units * (blockIdx.x + 1) / gridDim.x;
+  const float4* s4 = reinterpret_cast<const float4*>(slice);
+  for (long long u = begin; u < end;) {
+    const long long sl = u / TS;
+    const long long seg_end = end < (sl + 1) * TS ? end : (sl + 1) * TS;
+    const int g = static_cast<int>(sl / groups);
+    const int cg = static_cast<int>(sl % groups);
+    __syncthreads();  // every thread is done with the slice before
+    stage_level(slice, lv.vm[0] + (static_cast<size_t>(g) * lv.h[0] * ch +
+                                   cg * CG) * lv.w[0],
+                lv.h[0] * lv.w[0], lv.w[0], ch, starts[0]);
+    stage_level(slice, lv.vm[1] + (static_cast<size_t>(g) * lv.h[1] * ch +
+                                   cg * CG) * lv.w[1],
+                lv.h[1] * lv.w[1], lv.w[1], ch, starts[1]);
+    stage_level(slice, lv.vm[2] + (static_cast<size_t>(g) * lv.h[2] * ch +
+                                   cg * CG) * lv.w[2],
+                lv.h[2] * lv.w[2], lv.w[2], ch, starts[2]);
+    // each round's points are loaded while the round before samples
+    const long long base = sl * TS;
+    MajorPoint cur, next;
+    {
+      const long long us = u + threadIdx.x;
+      if (us < seg_end) {
+        const int ts = static_cast<int>(us - base);  // < T * S
+        const int t = ts / S;
+        load_major_point(cur, x, y, aw, static_cast<size_t>(g) * T + t,
+                         ts - t * S, S);
+      }
+    }
+    __syncthreads();
+    for (long long r = u; r < seg_end; r += kMajorStagedThreads) {
+      const long long us = r + threadIdx.x;
+      const long long un = us + kMajorStagedThreads;
+      if (un < seg_end) {
+        const int ts = static_cast<int>(un - base);
+        const int t = ts / S;
+        load_major_point(next, x, y, aw, static_cast<size_t>(g) * T + t,
+                         ts - t * S, S);
+      }
+      if (us < seg_end) {
+        const int ts = static_cast<int>(us - base);
+        const int t = ts / S;
+        const int s_ = ts - t * S;
+        const size_t gt = static_cast<size_t>(g) * T + t;
+        float acc[CG] = {};
+#pragma unroll
+        for (int l = 0; l < kMajorLevels; ++l) {
+          const int hl = lv.h[l];
+          const int wl = lv.w[l];
+          const float xs = cur.x[l] * wl - 0.5f;
+          const float ys = cur.y[l] * hl - 0.5f;
+          const float a = cur.a[l];
+          const float x0f = floorf(xs);
+          const float y0f = floorf(ys);
+          const float wx1 = xs - x0f;
+          const float wy1 = ys - y0f;
+          const int x0 = static_cast<int>(fminf(fmaxf(x0f, -2.f), wl + 1.f));
+          const int y0 = static_cast<int>(fminf(fmaxf(y0f, -2.f), hl + 1.f));
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int xi = x0 + (q & 1);
+            const int yi = y0 + (q >> 1);
+            const bool inside = xi >= 0 && xi < wl && yi >= 0 && yi < hl;
+            const float w =
+                ((q >> 1) ? wy1 : 1.f - wy1) * ((q & 1) ? wx1 : 1.f - wx1);
+            const float wgt = inside ? w * a : 0.f;
+            // the gather kernel reads offset 0 for a corner outside: here
+            // the level's first token, with the same weight 0
+            const int tok = starts[l] + (inside ? yi * wl + xi : 0);
+            const int sw = (tok >> 2) & 1;
+            const float4 e0 = s4[2 * tok + sw];
+            const float4 e1 = s4[2 * tok + (sw ^ 1)];
+            acc[0] += wgt * e0.x;
+            acc[1] += wgt * e0.y;
+            acc[2] += wgt * e0.z;
+            acc[3] += wgt * e0.w;
+            acc[4] += wgt * e1.x;
+            acc[5] += wgt * e1.y;
+            acc[6] += wgt * e1.z;
+            acc[7] += wgt * e1.w;
+          }
+        }
+        float* o = out + (gt * ch + cg * CG) * S + s_;
+#pragma unroll
+        for (int c = 0; c < CG; ++c) o[static_cast<size_t>(c) * S] = acc[c];
+      }
+      cur = next;
+    }
+    u = seg_end;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // K5b. vm0 / vm1 / vm2: (G, h_l * ch, w_l); x, y, aw: (G, T, 3, S); out:
 // (G, T, ch, S), all fp32 on the device. level_h / level_w: 3 host ints each.
-// Launches on `stream` and returns cudaGetLastError().
+// Launches the gather kernel on `stream` and returns cudaGetLastError().
 int deform_sample_major_f32(const float* vm0, const float* vm1,
                             const float* vm2, const float* x, const float* y,
                             const float* aw, float* out, const int* level_h,
@@ -385,6 +635,56 @@ int deform_sample_major_f32(const float* vm0, const float* vm1,
   deform_sample_major_kernel<<<dim3(T * chunks, G), kMajorThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       x, y, aw, out, lv, T, S, ch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As deform_sample_major_f32, from slices of 8 channels staged in shared
+// memory: ch a multiple of 8, and the 3 levels' tokens x 32 bytes within a
+// block's shared memory. `device` is the current device.
+int deform_sample_major_staged_f32(const float* vm0, const float* vm1,
+                                   const float* vm2, const float* x,
+                                   const float* y, const float* aw,
+                                   float* out, const int* level_h,
+                                   const int* level_w, int G, int T, int S,
+                                   int ch, int device, void* stream) {
+  constexpr int kMaxSmem = 232448;  // what a block may take on sm_90
+  if (ch % kMajorChannels || static_cast<long long>(T) * S > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MajorLevels lv = {{vm0, vm1, vm2}, {}, {}};
+  int starts[kMajorLevels];
+  int tokens = 0;
+  for (int l = 0; l < kMajorLevels; ++l) {
+    lv.h[l] = level_h[l];
+    lv.w[l] = level_w[l];
+    starts[l] = tokens;
+    tokens += level_h[l] * level_w[l];
+  }
+  const size_t smem =
+      static_cast<size_t>(tokens) * kMajorChannels * sizeof(float);
+  if (smem > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = deform_sample_major_staged_kernel;
+  // the limit raised once to the most a block may take; the blocks an SM
+  // at this launch's slice size asked each time
+  static KernelFacts facts;
+  int sms = 0, per_sm = 0;
+  cudaError_t err = facts.get(kernel, kMaxSmem, kMajorStagedThreads, device,
+                              sms, per_sm);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kMajorStagedThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const long long units = static_cast<long long>(G) *
+                          (ch / kMajorChannels) * T * S;
+  const long long rounds =
+      (units + kMajorStagedThreads - 1) / kMajorStagedThreads;
+  const int grid = static_cast<int>(
+      std::min<long long>(static_cast<long long>(sms) * per_sm, rounds));
+  kernel<<<grid, kMajorStagedThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      x, y, aw, out, lv, make_int3(starts[0], starts[1], starts[2]), T, S,
+      ch, units);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,8 @@
 // Hopper building blocks for the port's kernels: cp.async copies, mbarriers,
 // TMA tile loads, warpgroup matrix multiplies (wgmma) on 128-byte swizzled
 // shared-memory tiles, register reallocation between warpgroups, and the
-// host-side TMA descriptor. Every tile the TMA and wgmma helpers describe is
+// host-side TMA descriptor and the per-device launch facts a host entry
+// caches. Every tile the TMA and wgmma helpers describe is
 // K-major (the reduced dimension contiguous), 64 bf16 = 128 bytes a row,
 // written by TMA with CU_TENSOR_MAP_SWIZZLE_128B and 1024-byte aligned,
 // which is the layout wgmma's 128-byte swizzle mode reads.
@@ -11,6 +12,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace hopper {
@@ -283,6 +285,46 @@ __device__ __forceinline__ void wgmma(float (&d)[128], uint64_t da,
 }
 
 // ------------------------------------------------------------ host side
+
+constexpr int kMaxDevices = 64;
+
+// One kernel's launch facts on each device, read once per device and
+// process rather than on every launch (cudaFuncSetAttribute, the attribute
+// and occupancy queries each cost the caller microseconds): the kernel's
+// dynamic shared memory limit raised to `smem` bytes, the device's SM
+// count, and how many blocks of `threads` threads and `smem` bytes fit on
+// an SM. `device` is the current device. Concurrent first calls do the
+// same work twice and store the same facts.
+class KernelFacts {
+ public:
+  template <typename Kernel>
+  cudaError_t get(Kernel* kernel, int smem, int threads, int device,
+                  int& sms, int& per_sm) {
+    if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+    const uint64_t known = facts_[device].load(std::memory_order_acquire);
+    if (known) {
+      sms = static_cast<int>(known >> 32);
+      per_sm = static_cast<int>(known & 0xffffffffu);
+      return cudaSuccess;
+    }
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1 || sms < 1) return cudaErrorInvalidConfiguration;
+    facts_[device].store(static_cast<uint64_t>(sms) << 32 |
+                             static_cast<uint32_t>(per_sm),
+                         std::memory_order_release);
+    return cudaSuccess;
+  }
+
+ private:
+  std::atomic<uint64_t> facts_[kMaxDevices] = {};
+};
 
 // The driver's cuTensorMapEncodeTiled, fetched through the runtime so that
 // the library needs no -lcuda.

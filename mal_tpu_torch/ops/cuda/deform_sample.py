@@ -21,7 +21,11 @@ bounds it and how it is laid out.
   `mal_tpu.ops.pallas.deform_sample.deform_sample_fused` (v2), summed over
   levels but not over points. `mal_tpu` has no caller of that kernel
   (`segment/msdeform.py:84` imports only v4), and neither has the port: it
-  is an entry point of its own, a second kernel in the same source.
+  is an entry point of its own. K5b has two kernels too, and
+  `major_staged_channels` picks one from the shapes: the staged kernel,
+  which samples from a (group, 8-channel) slice held in shared memory,
+  wherever such a slice fits; the gather kernel elsewhere. Its `route=`
+  names either, for timing one against the other.
 
 `mal_tpu`'s `mxu_precision` ("high" or "bf16") chooses how many bf16 passes
 the TPU's matrix unit spends on the one-hot interpolation products of these
@@ -57,6 +61,16 @@ def staged_channels(tokens: int, ch: int, points: int) -> int | None:
     kernel runs."""
     if (points > _STAGED_POINTS or ch % _STAGED_CHANNELS
             or tokens * _STAGED_CHANNELS * 4 > _SMEM_BYTES):
+        return None
+    return _STAGED_CHANNELS
+
+
+def major_staged_channels(tokens: int, ch: int) -> int | None:
+    """Channels a block of K5b's staged kernel takes from a group's slice
+    of `tokens` value tokens (the three levels') of `ch` channels: 8, where
+    `ch` is a multiple of 8 and the slice fits in a block's shared memory
+    (up to 7,264 tokens); else None, and the gather kernel runs."""
+    if ch % _STAGED_CHANNELS or tokens * _STAGED_CHANNELS * 4 > _SMEM_BYTES:
         return None
     return _STAGED_CHANNELS
 
@@ -133,6 +147,10 @@ def _library() -> ctypes.CDLL:
             [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2
             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.deform_sample_major_f32.restype = ctypes.c_int
+        lib.deform_sample_major_staged_f32.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        lib.deform_sample_major_staged_f32.restype = ctypes.c_int
         lib.deform_sample_error_string.argtypes = [ctypes.c_int]
         lib.deform_sample_error_string.restype = ctypes.c_char_p
     return lib
@@ -218,9 +236,12 @@ def deform_sample_fused_reference(vm0: Tensor, vm1: Tensor, vm2: Tensor,
 
 def deform_sample_fused(vm0: Tensor, vm1: Tensor, vm2: Tensor, x: Tensor,
                         y: Tensor, aw: Tensor,
-                        shapes: tuple[tuple[int, int], ...], ch: int) -> Tensor:
+                        shapes: tuple[tuple[int, int], ...], ch: int, *,
+                        route: str | None = None) -> Tensor:
     """K5b (G, T, ch, S); arguments as `deform_sample_fused_reference`.
-    CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    CUDA tensors go to the kernel of `route` ("staged" or "gather"; by
+    default "staged" where `major_staged_channels` gives a slice), CPU
+    tensors to the plain version."""
     refuse_grad("deform_sample_fused", vm0, vm1, vm2, x, y, aw)
     if x.device.type == "cpu":
         return deform_sample_fused_reference(vm0, vm1, vm2, x, y, aw, shapes,
@@ -245,15 +266,27 @@ def deform_sample_fused(vm0: Tensor, vm1: Tensor, vm2: Tensor, x: Tensor,
         if tuple(vm.shape) != (G, h * ch, w):
             raise ValueError(f"level values {tuple(vm.shape)} must be "
                              f"{(G, h * ch, w)}")
+    staged = major_staged_channels(sum(h * w for h, w in shapes), ch)
+    if route is None:
+        route = "gather" if staged is None else "staged"
+    elif route not in ("staged", "gather") or (route == "staged"
+                                               and staged is None):
+        raise ValueError(f"route {route!r} does not take {ch} channels of "
+                         f"levels {shapes}")
     out = torch.empty((G, T, ch, S), dtype=torch.float32, device=x.device)
     ints = ctypes.c_int * L
     lib = _library()
     with torch.cuda.device(x.device):
-        err = lib.deform_sample_major_f32(
-            vm0.data_ptr(), vm1.data_ptr(), vm2.data_ptr(), x.data_ptr(),
-            y.data_ptr(), aw.data_ptr(), out.data_ptr(),
-            ints(*(h for h, _ in shapes)), ints(*(w for _, w in shapes)),
-            G, T, S, ch, torch.cuda.current_stream().cuda_stream)
+        args = (vm0.data_ptr(), vm1.data_ptr(), vm2.data_ptr(), x.data_ptr(),
+                y.data_ptr(), aw.data_ptr(), out.data_ptr(),
+                ints(*(h for h, _ in shapes)), ints(*(w for _, w in shapes)),
+                G, T, S, ch)
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "staged":
+            err = lib.deform_sample_major_staged_f32(
+                *args, x.device.index, stream)
+        else:
+            err = lib.deform_sample_major_f32(*args, stream)
     if err:
         msg = lib.deform_sample_error_string(err).decode()
         raise RuntimeError(f"deform_sample_fused launch failed: {msg} ({err})")

@@ -21,18 +21,24 @@ Preconditions on the mask, which the wrapper does not check (a check would
 read the mask back to the host on every call): it is what
 `segment/swin.py:shift_mask` makes, the port's one producer of masks, so
 it is symmetric (the loop kernel reads it by columns, which are its rows)
-and holds 0 and one non-zero value only (-100; the tiled kernel keeps it as
-bits and that one value). Any other mask gives a wrong answer on a CUDA
-tensor, with no error; the plain version takes any mask.
+and holds 0 and one non-zero value only (-100; the tiled and w7 kernels
+keep it as bits and that one value). Any other mask gives a wrong answer
+on a CUDA tensor, with no error; the plain version takes any mask.
 
-The source has two kernels, and the wrapper picks one by the window size:
-the tiled kernel for 12x12 windows (`TILED_WINDOW`, every Swin-L stage),
-the loop kernel for any other (Swin-T's 7x7).
+The source has three kernels, one a route, and `window_attention_route`
+picks one from the window size alone: "tiled" for 12x12 windows (every
+Swin-L stage), "w7" for 7x7 windows (every Swin-T stage, MaskFormer v1),
+"loop" for any other window up to 16x16 (no model in the repo runs one).
+The wrapper's `route=` names another route for timing one against the
+other (the loop kernel takes every window size).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -45,6 +51,18 @@ SOURCE = "window_attention"
 HEAD_DIM = 32      # the kernel's head width, Swin's at every size
 _MAX_WINDOW = 16   # K and V of a 16x16 window fill 64 KB of shared memory
 TILED_WINDOW = 12  # the window size the tiled kernel is built for
+W7_WINDOW = 7      # ... and the w7 kernel
+# each route's C entry point in the library
+_ENTRIES = {"tiled": "window_attention_tiled_f32",
+            "w7": "window_attention_w7_f32", "loop": "window_attention_f32"}
+
+
+def window_attention_route(ws: int) -> str:
+    """The kernel that takes windows of ws x ws tokens: "tiled" for 12,
+    "w7" for 7, "loop" for any other ws up to 16; above 16 a ValueError."""
+    if not 1 <= ws <= _MAX_WINDOW:
+        raise ValueError(f"window {ws} is outside 1..{_MAX_WINDOW}")
+    return {TILED_WINDOW: "tiled", W7_WINDOW: "w7"}.get(ws, "loop")
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -85,76 +103,101 @@ def window_attention_reference(qkv: Tensor, table: Tensor, mask: Tensor | None,
 
 def _check(qkv: Tensor, table: Tensor, mask: Tensor | None,
            num_heads: int) -> int:
-    """Raise on anything the kernel does not take; return the window size."""
-    tensors = {"qkv": qkv, "table": table}
-    if mask is not None:
-        tensors["mask"] = mask
-    for name, x in tensors.items():
-        if x.device != qkv.device:
-            raise ValueError(f"{name} is on {x.device}, qkv on {qkv.device}")
-        if x.dtype != torch.float32:
+    """Raise on anything the kernel does not take; return the window size.
+    It runs on every launch, so it reads each attribute once and compares
+    shapes by their entries."""
+    device = qkv.device
+    for name, x in (("qkv", qkv), ("table", table), ("mask", mask)):
+        if x is None:
+            continue
+        if x is not qkv and x.device != device:
+            raise ValueError(f"{name} is on {x.device}, qkv on {device}")
+        if x.dtype is not torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if qkv.dim() != 3 or qkv.shape[2] != 3 * num_heads * HEAD_DIM:
-        raise ValueError(f"qkv {tuple(qkv.shape)} must be (nW, N, 3 x "
+    shape = qkv.shape
+    if len(shape) != 3 or shape[2] != 3 * num_heads * HEAD_DIM:
+        raise ValueError(f"qkv {tuple(shape)} must be (nW, N, 3 x "
                          f"{num_heads} heads x {HEAD_DIM})")
-    nW, N, _ = qkv.shape
-    ws = int(round(N ** 0.5))
+    nW, N = shape[0], shape[1]
+    ws = math.isqrt(N)
     if ws * ws != N or ws > _MAX_WINDOW:
         raise ValueError(f"{N} tokens is not a square window of side <= "
                          f"{_MAX_WINDOW}")
-    if table.shape != ((2 * ws - 1) ** 2, num_heads):
-        raise ValueError(f"table {tuple(table.shape)} does not fit ws={ws}, "
+    tshape = table.shape
+    if len(tshape) != 2 or tshape[0] != (2 * ws - 1) ** 2 \
+            or tshape[1] != num_heads:
+        raise ValueError(f"table {tuple(tshape)} does not fit ws={ws}, "
                          f"{num_heads} heads")
-    if mask is not None and (mask.dim() != 3 or mask.shape[1:] != (N, N)
-                             or nW % mask.shape[0]):
-        raise ValueError(f"mask {tuple(mask.shape)} does not fit {nW} "
-                         f"windows of {N} tokens")
-    if qkv.data_ptr() % 16 or (mask is not None and mask.data_ptr() % 16):
+    if mask is not None:
+        mshape = mask.shape
+        if (len(mshape) != 3 or mshape[1] != N or mshape[2] != N
+                or nW % mshape[0]):
+            raise ValueError(f"mask {tuple(mshape)} does not fit {nW} "
+                             f"windows of {N} tokens")
+        if mask.data_ptr() % 16:
+            raise ValueError("qkv and mask must be 16-byte aligned")
+    if qkv.data_ptr() % 16:
         raise ValueError("qkv and mask must be 16-byte aligned")
     return ws
 
 
-def _library() -> ctypes.CDLL:
+@functools.cache
+def _entries() -> tuple[dict, Callable]:
+    """The library's launch functions by route, with their argument types,
+    and its error-string function; loaded (and built) once."""
     from mal_tpu_torch.ops.cuda.build import load_library
 
     lib = load_library(SOURCE)
-    if lib.window_attention_f32.argtypes is None:
-        for fn in (lib.window_attention_f32, lib.window_attention_tiled_f32):
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        lib.window_attention_error_string.argtypes = [ctypes.c_int]
-        lib.window_attention_error_string.restype = ctypes.c_char_p
-    return lib
+    launch = {}
+    for route, name in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        launch[route] = fn
+    lib.window_attention_error_string.argtypes = [ctypes.c_int]
+    lib.window_attention_error_string.restype = ctypes.c_char_p
+    return launch, lib.window_attention_error_string
 
 
 def window_attention(qkv: Tensor, table: Tensor, mask: Tensor | None,
-                     num_heads: int) -> Tensor:
+                     num_heads: int, *, route: str | None = None) -> Tensor:
     """Window attention (nW, N, C); arguments as
     `window_attention_reference`, the mask as the module's preconditions
-    say. CUDA tensors go to the kernel, CPU tensors to the plain version."""
+    say. CUDA tensors go to the kernel of `route` (by default
+    `window_attention_route`'s), CPU tensors to the plain version."""
     refuse_grad("window_attention", qkv, table, mask)
-    if qkv.device.type == "cpu":
+    dev = qkv.device
+    if dev.type == "cpu":
         return window_attention_reference(qkv, table, mask, num_heads)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"unsupported device {qkv.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     ws = _check(qkv, table, mask, num_heads)
+    if route is None:
+        route = window_attention_route(ws)
+    elif route != "loop" and route != window_attention_route(ws):
+        raise ValueError(f"route {route!r} does not take {ws}x{ws} windows")
     nW, N, C3 = qkv.shape
-    out = torch.empty((nW, N, C3 // 3), dtype=torch.float32, device=qkv.device)
+    out = qkv.new_empty((nW, N, C3 // 3))
     nm = 1 if mask is None else mask.shape[0]
-    lib = _library()
-    launch = (lib.window_attention_tiled_f32 if ws == TILED_WINDOW
-              else lib.window_attention_f32)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = launch(
-            qkv.data_ptr(), table.data_ptr(),
+    launch, error_string = _entries()
+    device = dev.index
+    args = (qkv.data_ptr(), table.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            nW, num_heads, ws, nm, stream)
+            nW, num_heads, ws, nm, device)
+    # the current stream's handle, without building the Stream object that
+    # `torch.cuda.current_stream()` returns (on the H100's host that cost
+    # as much as the launch); the binding exists in CUDA builds of torch
+    if device == torch.cuda.current_device():
+        err = launch[route](*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = launch[route](*args,
+                                torch._C._cuda_getCurrentRawStream(device))
     if err:
-        msg = lib.window_attention_error_string(err).decode()
+        msg = error_string(err).decode()
         raise RuntimeError(f"window_attention launch failed: {msg} ({err})")
     window_attention.launches += 1
     return out

@@ -9,6 +9,7 @@ import torch
 
 from mal_tpu_torch.ops.cuda import cost_volume_kernel as k1
 from mal_tpu_torch.ops.cuda import deform_sample as k5
+from mal_tpu_torch.ops.cuda import window_attention as k4
 from mal_tpu_torch.segment.swin import shift_mask
 
 
@@ -32,13 +33,42 @@ def test_k5_staged_channels(tokens, ch, points, plan):
     assert k5.staged_channels(tokens, ch, points) == plan
 
 
-# the padded maps of Swin-L's two shifted stages at 192x640 and 320x1024
-@pytest.mark.parametrize("Hp,Wp", [(48, 168), (24, 84), (84, 264), (48, 132)])
-def test_shift_mask_holds_one_nonzero_value(Hp, Wp):
-    """K4's tiled kernel keeps the mask as bits (mask != 0) and the mask's
-    non-zero value, which is exact only for a mask of 0 and one value."""
-    mask = shift_mask(Hp, Wp, 12, 6)
+# (padded map, window): the maps of Swin-L's two shifted stages at 192x640
+# and 320x1024, and of Swin-T's four (every one shifted) at MaskFormer v1's
+# 256x448
+@pytest.mark.parametrize("Hp,Wp,ws", [
+    pytest.param(48, 168, 12, id="48-168"), pytest.param(24, 84, 12, id="24-84"),
+    pytest.param(84, 264, 12, id="84-264"),
+    pytest.param(48, 132, 12, id="48-132"), (70, 112, 7), (35, 56, 7),
+    (21, 28, 7), (14, 14, 7)])
+def test_shift_mask_holds_one_nonzero_value(Hp, Wp, ws):
+    """K4's tiled and w7 kernels keep the mask as bits (mask != 0) and the
+    mask's non-zero value, which is exact only for a mask of 0 and one
+    value."""
+    mask = shift_mask(Hp, Wp, ws, ws // 2)
     assert set(torch.unique(mask).tolist()) == {-100.0, 0.0}
+
+
+# the window sizes of Swin-T (7) and Swin-L (12), two the loop kernel takes,
+# and one above what any route takes
+@pytest.mark.parametrize("ws,route", [(7, "w7"), (12, "tiled"), (8, "loop"),
+                                      (16, "loop"), (17, None)])
+def test_k4_window_attention_route(ws, route):
+    if route is None:
+        with pytest.raises(ValueError, match="window 17"):
+            k4.window_attention_route(ws)
+    else:
+        assert k4.window_attention_route(ws) == route
+
+
+# (tokens, channels, channels a staged block of K5b takes): the pixel
+# decoder's three levels at 192x640 (chip_smoke.py's K5b phase), channels
+# that are no multiple of 8, the most tokens whose 8-channel slice fits in
+# a block's 227 KB, and one more
+@pytest.mark.parametrize("tokens,ch,plan", [
+    (2520, 32, 8), (2520, 12, None), (7264, 32, 8), (7265, 32, None)])
+def test_k5b_major_staged_channels(tokens, ch, plan):
+    assert k5.major_staged_channels(tokens, ch) == plan
 
 
 # chip_smoke.py's K1 phase (BF=12, D=96, 48x160x64) and K6 phase (BF=14,

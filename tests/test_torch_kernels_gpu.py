@@ -255,9 +255,9 @@ def _k4_case(cuda, Hp, Wp, images, ws, heads, shifted, seed):
     return qkv, table, mask
 
 
-def _k4_check(qkv, table, mask, heads):
+def _k4_check(qkv, table, mask, heads, route=None):
     before = k4.window_attention.launches
-    out = k4.window_attention(qkv, table, mask, heads)
+    out = k4.window_attention(qkv, table, mask, heads, route=route)
     assert k4.window_attention.launches == before + 1
     plain = k4.window_attention_reference(qkv, table, mask, heads)
     torch.cuda.synchronize()
@@ -288,6 +288,32 @@ def test_k4_at_the_swin_l_stages(cuda, Hp, Wp, heads, shifted, images):
     assert k4.TILED_WINDOW == 12
     _k4_check(*_k4_case(cuda, Hp, Wp, images, 12, heads, shifted, heads),
               heads)
+
+
+# the four Swin-T stages of MaskFormer v1 at 256x448 (padded maps, heads),
+# each shifted and not, at two images: the w7 kernel, chosen by
+# `window_attention_route`, and the loop kernel it replaced
+@pytest.mark.parametrize("shifted", [True, False])
+@pytest.mark.parametrize("Hp,Wp,heads", [(70, 112, 3), (35, 56, 6),
+                                         (21, 28, 12), (14, 14, 24)])
+def test_k4_w7_at_the_swin_t_stages(cuda, Hp, Wp, heads, shifted):
+    assert k4.window_attention_route(7) == "w7"
+    qkv, table, mask = _k4_case(cuda, Hp, Wp, 2, 7, heads, shifted, heads)
+    _k4_check(qkv, table, mask, heads)
+    _k4_check(qkv, table, mask, heads, route="loop")
+
+
+# window 8, which no model runs: the loop route, shifted and not
+@pytest.mark.parametrize("shifted", [True, False])
+def test_k4_loop_route_at_window_8(cuda, shifted):
+    assert k4.window_attention_route(8) == "loop"
+    _k4_check(*_k4_case(cuda, 16, 24, 2, 8, 2, shifted, 8), 2)
+
+
+def test_k4_route_must_take_the_window(cuda):
+    qkv, table, mask = _k4_case(cuda, 14, 14, 1, 7, 2, True, 0)
+    with pytest.raises(ValueError, match="route 'tiled'"):
+        k4.window_attention(qkv, table, mask, 2, route="tiled")
 
 
 def test_k4_adds_the_masks_own_value(cuda):
@@ -545,6 +571,40 @@ def test_k5b_matches_plain_version(cuda, G, T, S, ch, shapes):
     torch.testing.assert_close(out, plain, rtol=0, atol=1e-4)
     with pytest.raises(ValueError, match="level values"):
         k5.deform_sample_fused(vms[1], vms[1], vms[2], x, y, aw, shapes, ch)
+
+
+# (G, T, S, ch, levels): the pixel decoder's levels at 192x640 (every width
+# a multiple of 4: float4 staging) and odd widths (4-byte staging), each on
+# both routes; the staged one is the default where a slice fits
+@pytest.mark.parametrize("route", ["staged", "gather"])
+@pytest.mark.parametrize("G,T,S,ch,shapes", [
+    (8, 2, 2048, 32, ((6, 20), (12, 40), (24, 80))),
+    (4, 3, 333, 16, ((5, 7), (6, 13), (10, 21)))])
+def test_k5b_routes_match_plain_version(cuda, G, T, S, ch, shapes, route):
+    assert k5.major_staged_channels(sum(h * w for h, w in shapes), ch) == 8
+    rng = np.random.RandomState(S + ch)
+    vms = [torch.from_numpy(rng.randn(G, h * ch, w).astype(np.float32)).to(cuda)
+           for h, w in shapes]
+    x, y, aw = (torch.from_numpy(rng.uniform(-0.2, 1.2, (G, T, 3, S))
+                                 .astype(np.float32)).to(cuda) for _ in range(3))
+    before = k5.deform_sample_fused.launches
+    out = k5.deform_sample_fused(*vms, x, y, aw, shapes, ch, route=route)
+    assert k5.deform_sample_fused.launches == before + 1
+    plain = k5.deform_sample_fused_reference(*vms, x, y, aw, shapes, ch)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, plain, rtol=0, atol=1e-4)
+    # the staged kernel does the gather kernel's arithmetic: the same bits
+    other = "gather" if route == "staged" else "staged"
+    assert torch.equal(out, k5.deform_sample_fused(*vms, x, y, aw, shapes,
+                                                   ch, route=other))
+
+
+def test_k5b_staged_route_must_fit(cuda):
+    vms = [torch.zeros(1, 12 * h, w, device=cuda) for h, w in ((1, 2),) * 3]
+    x = torch.zeros(1, 1, 3, 4, device=cuda)
+    with pytest.raises(ValueError, match="route 'staged'"):
+        k5.deform_sample_fused(*vms, x, x, x, ((1, 2),) * 3, 12,
+                               route="staged")
 
 
 @pytest.mark.parametrize("name", ["plane_sweep_diffs", "plane_sweep_diffs_occ",

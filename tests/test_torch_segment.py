@@ -59,19 +59,26 @@ def _np(x):
 # K4: window attention
 # --------------------------------------------------------------------------
 
-@pytest.mark.parametrize("ws,images,shifted", [(12, 3, False), (12, 2, True),
-                                               (7, 2, True)])
-def test_k4_plain_matches_pallas_kernel(ws, images, shifted):
-    """Unshifted (nm = 1) and shifted (nm > 1, the real shift mask of a
-    2x2-window map) blocks; 2 heads of 32."""
-    heads, N = 2, ws * ws
-    nm = 4 if shifted else 1
+# (window, images, shifted, heads, padded map): unshifted (nm = 1) and
+# shifted blocks (the real shift mask of a 2x2-window map) with 2 heads of
+# 32, and a Swin-T-like one: window 7 on the 21x28 map of its stage 2 (12
+# windows), 3 heads
+@pytest.mark.parametrize("ws,images,shifted,heads,hw", [
+    pytest.param(12, 3, False, 2, None, id="12-3-False"),
+    pytest.param(12, 2, True, 2, None, id="12-2-True"),
+    pytest.param(7, 2, True, 2, None, id="7-2-True"),
+    pytest.param(7, 2, True, 3, (21, 28), id="7-2-True-swin-t")])
+def test_k4_plain_matches_pallas_kernel(ws, images, shifted, heads, hw):
+    """The port's K4 on the CPU (its plain version) against the Pallas
+    kernel in interpret mode."""
+    N = ws * ws
+    Hp, Wp = hw or (2 * ws, 2 * ws)
+    nm = (Hp // ws) * (Wp // ws) if shifted else 1
     nW = images * nm
     rng = np.random.RandomState(ws + nm)
     qkv = rng.randn(nW, N, 3 * heads * 32).astype(np.float32)
     table = (0.1 * rng.randn((2 * ws - 1) ** 2, heads)).astype(np.float32)
-    mask = (shift_mask(2 * ws, 2 * ws, ws, ws // 2).numpy() if shifted
-            else None)
+    mask = shift_mask(Hp, Wp, ws, ws // 2).numpy() if shifted else None
     got = window_attention(torch.from_numpy(qkv), torch.from_numpy(table),
                            None if mask is None else torch.from_numpy(mask),
                            heads)
