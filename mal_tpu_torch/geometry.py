@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from mal_tpu_torch.utils import profiling
+
 Tensor = torch.Tensor
 
 
@@ -124,16 +126,20 @@ def project_3d(points: Tensor, K: Tensor, T: Tensor, height: int, width: int,
     cam_points = P @ points                                # (B, 3, HW)
     pix = cam_points[:, :2, :] / _safe_denom(cam_points[:, 2:3, :] + eps)
     pix = pix.reshape(-1, 2, height, width).permute(0, 2, 3, 1)
+    # a copy from a host list, which synchronises with the device
     scale = torch.tensor([width - 1, height - 1], dtype=pix.dtype,
                          device=pix.device)
+    profiling.count("host_syncs")
     grid = (pix / scale - 0.5) * 2.0
     return grid.clamp(-10.0, 10.0)
 
 
 def scale_intrinsics(K: Tensor, scale: int) -> Tensor:
     """Downscale full-resolution intrinsics by 2**scale (rows 0 and 1)."""
+    # a copy from a host list, which synchronises with the device
     factor = torch.tensor([1.0 / (2 ** scale), 1.0 / (2 ** scale), 1.0, 1.0],
                           dtype=K.dtype, device=K.device)
+    profiling.count("host_syncs")
     return K * factor[None, :, None]
 
 

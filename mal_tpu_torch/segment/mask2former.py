@@ -27,6 +27,7 @@ from mal_tpu_torch.segment.pixel_decoder import MSDeformAttnPixelDecoder
 from mal_tpu_torch.segment.swin import CONFIGS, SwinTransformer, WindowAttention
 from mal_tpu_torch.segment.transformer_decoder import (MaskedTransformerDecoder,
                                                        MultiheadAttention)
+from mal_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -45,8 +46,10 @@ def preprocess_images(images: Tensor, bgr_input: bool = True) -> Tensor:
     colour-correct form fine-tuning uses (`mal_tpu/cli.py:436-437`)."""
     if bgr_input:
         images = images.flip(-1)
+    # two copies from host lists, each of which synchronises with the device
     mean = torch.tensor(_PIXEL_MEAN, device=images.device)
     std = torch.tensor(_PIXEL_STD, device=images.device)
+    profiling.count("host_syncs", 2)
     return (images * 255.0 - mean) / std
 
 
@@ -224,7 +227,7 @@ def make_seg_fn(model: Mask2Former, max_instances: int):
 
     def seg_fn(images: Tensor) -> Instances:
         H, W = images.shape[1:3]
-        with torch.no_grad():
+        with profiling.span("mal.segmenter"), torch.no_grad():
             logits, masks = model(images.detach())
             return instance_inference(logits, masks, H, W, max_instances)
 

@@ -6,7 +6,8 @@ frame (`manydepth/matcher.py:63-255`), solved exactly.
 
 The cost matrices are built on the tensors' device. The assignment runs on
 the host, in numpy float32: `match_instances` copies the (B, 2, N, N) costs
-to the CPU once, which synchronises with the device once per call. The solve
+to the CPU once and the assignment back, which synchronises with the device
+three times per call (each a `host_syncs` count). The solve
 is `mal_tpu`'s Jonker-Volgenant shortest-augmenting-path algorithm step for
 step, in the same float32 arithmetic, so that on exact cost ties it picks the
 assignment `mal_tpu` picks (scipy's may differ).
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from mal_tpu_torch.segment.instances import Instances
+from mal_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -107,13 +109,22 @@ def match_instances(inst_last: Instances, inst_next: Instances,
     in both adjacent frames, valid only when both assignments pair real
     instances.
     """
-    costs = torch.stack([_pair_cost(inst_last, inst_cur),
-                         _pair_cost(inst_next, inst_cur)], dim=1)
-    host = costs.cpu().numpy()                       # the one device sync
-    rows = hungarian_match(host)                     # (B, 2, N)
-    # cost of each column's assigned pair: host[b, k, rows[b, k, j], j]
-    picked = np.take_along_axis(host, rows[:, :, None, :], axis=2)[:, :, 0]
-    ok = (picked < _BIG / 2).all(axis=1)
-    dev = inst_cur.masks.device
-    rows = torch.from_numpy(rows).to(dev)
-    return rows[:, 0], rows[:, 1], torch.from_numpy(ok).to(dev)
+    with profiling.span("mal.matching"):
+        costs = torch.stack([_pair_cost(inst_last, inst_cur),
+                             _pair_cost(inst_next, inst_cur)], dim=1)
+        with profiling.span("mal.matching.wait"):
+            host = costs.cpu().numpy()               # waits for the device
+        profiling.count("host_syncs")
+        with profiling.span("mal.matching.solve"):
+            rows = hungarian_match(host)             # (B, 2, N)
+            # cost of each column's assigned pair: host[b, k, rows[b, k, j], j]
+            picked = np.take_along_axis(host, rows[:, :, None, :],
+                                        axis=2)[:, :, 0]
+            ok = (picked < _BIG / 2).all(axis=1)
+            dev = inst_cur.masks.device
+            # two copies to the device from pageable memory, each of which
+            # synchronises with it
+            rows = torch.from_numpy(rows).to(dev)
+            ok = torch.from_numpy(ok).to(dev)
+            profiling.count("host_syncs", 2)
+        return rows[:, 0], rows[:, 1], ok

@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from mal_tpu_torch.ops.cuda.deform_sample import (
     ms_deform_attn_core, ms_deform_attn_core_per_level)
+from mal_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -58,8 +59,10 @@ class MSDeformAttn(nn.Module):
         attn = self.attention_weights(query).reshape(B, Lq, H_, L * P)
         attn = attn.softmax(dim=-1).reshape(B, Lq, H_, L, P)
         # offsets are in pixels of each level: normalise by its (w, h)
+        # a copy from a host list, which synchronises with the device
         sizes = torch.tensor([[w, h] for h, w in spatial_shapes],
                              dtype=torch.float32, device=query.device)
+        profiling.count("host_syncs")
         locs = (reference_points[:, :, None, :, None, :]
                 + offsets / sizes[None, None, None, :, None, :])
         core = ms_deform_attn_core_per_level if train else ms_deform_attn_core

@@ -49,6 +49,7 @@ from mal_tpu_torch.segment.cache import instances_from_batch
 from mal_tpu_torch.temporal import image_synthesis
 from mal_tpu_torch.train.lr_schedule import make_schedule
 from mal_tpu_torch.train.state import TrainState, apply_gradients
+from mal_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -214,21 +215,29 @@ def make_loss_fn(cfg: Config, model: MALModel,
         (`dyn_utils.py:121-170`); the segmenter sees them detached, and
         `inst_cur` is shared between the teacher's and the student's call.
         Returns the two frames and the (B,) items with a matched pair."""
-        inst_last, inst_next = (seg_fn(w.detach().permute(0, 2, 3, 1))
-                                for w in warped)
-        syn_l, syn_n, has = image_synthesis(
-            warped[0], warped[1], inst_cur, inst_last, inst_next,
-            cfg.ins_threshold,
-            payload_dtype=compute_dtype_of(cfg.compute_dtype))
+        with profiling.span("mal.synthesis"):
+            inst_last, inst_next = (seg_fn(w.detach().permute(0, 2, 3, 1))
+                                    for w in warped)
+            syn_l, syn_n, has = image_synthesis(
+                warped[0], warped[1], inst_cur, inst_last, inst_next,
+                cfg.ins_threshold,
+                payload_dtype=compute_dtype_of(cfg.compute_dtype))
         return [syn_l, syn_n], has
 
     def loss_fn(batch: dict, min_d: Tensor, max_d: Tensor,
                 balancer: losses.LossBalancerState, epoch: float,
                 aug_draw: Tensor | None = None, noise: Tensor | None = None,
                 generator: torch.Generator | None = None):
-        outputs = model(batch, min_d, max_d, aug_draw=aug_draw,
-                        generator=generator, train=True,
-                        train_teacher=train_teacher, train_pose=train_pose)
+        with profiling.span("mal.depth_model"):
+            outputs = model(batch, min_d, max_d, aug_draw=aug_draw,
+                            generator=generator, train=True,
+                            train_teacher=train_teacher, train_pose=train_pose)
+        with profiling.span("mal.losses"):
+            return losses_of(batch, outputs, balancer, epoch, noise, generator)
+
+    def losses_of(batch: dict, outputs: dict,
+                  balancer: losses.LossBalancerState, epoch: float,
+                  noise: Tensor | None, generator: torch.Generator | None):
         # the current frame's instances, shared by both syntheses: from the
         # precomputed cache when `seg_cache_root` is set
         # (`segment/cache.py`), else one segmenter forward
@@ -425,37 +434,40 @@ def make_train_step(cfg: Config, device: str | torch.device | None = None,
         if batch["K"].device != device:
             raise ValueError(f"batch is on {batch['K'].device}, the step "
                              f"runs on {device}")
-        draws = draws or {}
-        model = state.model
-        loss_fn = make_loss_fn(cfg, model, seg_fn)
+        with profiling.span(profiling.STEP):
+            draws = draws or {}
+            model = state.model
+            loss_fn = make_loss_fn(cfg, model, seg_fn)
 
-        model.zero_grad(set_to_none=True)
-        total, aux = loss_fn(batch, state.bins.min_depth, state.bins.max_depth,
-                             state.balancer, epoch,
-                             aug_draw=draws.get("matching_aug"),
-                             noise=draws.get("automask_noise"),
-                             generator=generator)
-        pareto_metrics = {}
-        if aux["components"] is not None:
-            pareto_metrics = _pareto_backward(cfg, model, aux["components"])
-        else:
-            total.backward()
-            mesh.all_reduce_grads(model.parameters())
-        apply_gradients(state.optimizer, schedule(state.step),
-                        cfg.grad_clip_norm)
-
-        # adaptive depth bins from the teacher (`trainer.py:631-634`)
-        if cfg.adaptive_bins and train_teacher:
-            state.bins = state.bins.update(aux["mono_depth"], cfg.min_depth,
-                                           cfg.depth_bin_ema)
-        state.balancer = aux["balancer"]
-        state.step += 1
-        metrics = dict(aux["metrics"])
-        metrics.update(pareto_metrics)
-        # the balancer's weights are global already; the rest are shares
-        metrics = mesh.sum_metrics(metrics, keep=("w_ori", "w_distil"))
-        metrics["min_depth_bin"] = state.bins.min_depth
-        metrics["max_depth_bin"] = state.bins.max_depth
+            model.zero_grad(set_to_none=True)
+            total, aux = loss_fn(batch, state.bins.min_depth,
+                                 state.bins.max_depth, state.balancer, epoch,
+                                 aug_draw=draws.get("matching_aug"),
+                                 noise=draws.get("automask_noise"),
+                                 generator=generator)
+            pareto_metrics = {}
+            with profiling.span("mal.backward"):
+                if aux["components"] is not None:
+                    pareto_metrics = _pareto_backward(cfg, model,
+                                                      aux["components"])
+                else:
+                    total.backward()
+                    mesh.all_reduce_grads(model.parameters())
+            with profiling.span("mal.optimizer"):
+                apply_gradients(state.optimizer, schedule(state.step),
+                                cfg.grad_clip_norm)
+                # adaptive depth bins from the teacher (`trainer.py:631-634`)
+                if cfg.adaptive_bins and train_teacher:
+                    state.bins = state.bins.update(
+                        aux["mono_depth"], cfg.min_depth, cfg.depth_bin_ema)
+            state.balancer = aux["balancer"]
+            state.step += 1
+            metrics = dict(aux["metrics"])
+            metrics.update(pareto_metrics)
+            # the balancer's weights are global already; the rest are shares
+            metrics = mesh.sum_metrics(metrics, keep=("w_ori", "w_distil"))
+            metrics["min_depth_bin"] = state.bins.min_depth
+            metrics["max_depth_bin"] = state.bins.max_depth
         return state, metrics
 
     return train_step

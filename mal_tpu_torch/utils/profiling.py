@@ -3,59 +3,176 @@
 `chip_smoke.py` prints.
 
 The reference has only wall-clock prints (`manydepth/evaluate_depth.py:
-175-176`, `trainer.py:1521-1531`). Here: a `torch.profiler` trace exported
-for Chrome's trace viewer, steady-state timing (CUDA events on a CUDA
-device, the host clock on the CPU), a throughput meter, and a step's device
-idle share.
+175-176`, `trainer.py:1521-1531`). Here: the program's spans and counters
+at its layer boundaries (`span`, `count`, `recording`), a `torch.profiler`
+trace exported for Chrome's trace viewer with those spans in it,
+steady-state timing by CUDA events, and a step's device idle share.
+
+The spans are stamped with `time.time_ns()`, the clock of the profiler's
+Chrome trace (`baseTimeNanoseconds` + `ts` x 1000), so that they can be
+laid over a trace that records the device alone, and the host, unrecorded
+by the profiler, runs at its own speed.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import json
 import os
+import threading
 import time
 from typing import Callable
 
 import torch
-from torch.utils._pytree import tree_leaves
+
+# the span around one training step: every span inside it carries its index
+STEP = "mal.step"
+# the Chrome trace's track (tid) of the spans, in the profiled process
+SPAN_TRACK = 0
+
+
+@dataclasses.dataclass
+class Records:
+    """What `recording()` gathered. `spans`: (name, start_ns, end_ns,
+    parent, step) in the order they opened, times from `time.time_ns()`,
+    `parent` the index of the enclosing span on the same thread (None at
+    the top), `step` the index of the enclosing `STEP` span among them
+    (None outside one); a span still open when recording ended has
+    `end_ns` None. `counts`: each counter's total."""
+    spans: list = dataclasses.field(default_factory=list)
+    counts: dict = dataclasses.field(default_factory=dict)
+
+
+class _Recorder:
+    def __init__(self):
+        self.records = Records()
+        self.steps = 0
+        self.lock = threading.Lock()
+        self.local = threading.local()   # each thread's stack of open spans
+
+    def stack(self) -> list:
+        if not hasattr(self.local, "stack"):
+            self.local.stack = []
+        return self.local.stack
+
+    def open(self, name: str) -> int:
+        stack = self.stack()
+        parent = stack[-1] if stack else None
+        spans = self.records.spans
+        with self.lock:
+            if name == STEP:
+                step, self.steps = self.steps, self.steps + 1
+            else:
+                step = None if parent is None else spans[parent][4]
+            index = len(spans)
+            spans.append((name, time.time_ns(), None, parent, step))
+        stack.append(index)
+        return index
+
+    def close(self, index: int) -> None:
+        end = time.time_ns()
+        self.stack().pop()
+        spans = self.records.spans
+        with self.lock:
+            name, start, _, parent, step = spans[index]
+            spans[index] = (name, start, end, parent, step)
+
+    def count(self, name: str, n: int) -> None:
+        counts = self.records.counts
+        with self.lock:
+            counts[name] = counts.get(name, 0) + n
+
+
+class _Span:
+    __slots__ = ("recorder", "name", "index")
+
+    def __init__(self, recorder: _Recorder, name: str):
+        self.recorder, self.name = recorder, name
+
+    def __enter__(self):
+        self.index = self.recorder.open(self.name)
+
+    def __exit__(self, *exc) -> None:
+        self.recorder.close(self.index)
+
+
+_recorder: _Recorder | None = None
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records the block as the span `name` while
+    `recording()` is on; off, the one shared no-op, with no clock read
+    and nothing allocated."""
+    if _recorder is None:
+        return _NO_SPAN
+    return _Span(_recorder, name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` while `recording()` is on."""
+    if _recorder is None:
+        return
+    _recorder.count(name, n)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the spans and counters of the block; yields the `Records`,
+    which hold them once the block ends. Raises RuntimeError when a
+    recording is on already."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("the recorder is already on")
+    recorder = _Recorder()
+    _recorder = recorder
+    try:
+        yield recorder.records
+    finally:
+        _recorder = None
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile the block with `torch.profiler` (the CPU, and CUDA when a
     card is present) and write `log_dir/trace.json` for Chrome's trace
-    viewer (chrome://tracing, Perfetto). Yields the profile, whose
-    `key_averages()` gives the table."""
+    viewer (chrome://tracing, Perfetto), with the program's spans of the
+    block as complete events on a track of their own (`SPAN_TRACK`,
+    category "span", args `parent` and `step` as `Records` has them).
+    Yields the profile, whose `key_averages()` gives the table."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with recording() as records, profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, records)
 
 
-def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 1,
-            **kwargs) -> dict:
-    """Steady-state time of `fn(*args, **kwargs)`: the mean over `iters`
-    calls after `warmup`. Where the first warm-up result holds a CUDA
-    tensor the calls are timed by CUDA events on the current stream, else
-    by the host clock (CPU work is done when the call returns)."""
-    result = None
-    for _ in range(max(warmup, 1)):
-        result = fn(*args, **kwargs)
-    on_card = any(isinstance(t, torch.Tensor) and t.is_cuda
-                  for t in tree_leaves(result))
-    if on_card:
-        return {"mean_ms": cuda_time_ms(lambda: fn(*args, **kwargs), iters,
-                                        warmup=0), "iters": iters}
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn(*args, **kwargs)
-    dt = (time.perf_counter() - t0) / iters
-    return {"mean_ms": dt * 1000.0, "iters": iters}
+def _add_spans(path: str, records: Records) -> None:
+    """Append the closed spans to the Chrome trace at `path`, whose `ts`
+    count microseconds from its `baseTimeNanoseconds` (Unix time; 0 where
+    a trace has no base, whose `ts` are Unix time)."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = doc.get("baseTimeNanoseconds", 0)
+    pid = os.getpid()
+    events = doc["traceEvents"]
+    events.append({"ph": "M", "name": "thread_name", "pid": pid,
+                   "tid": SPAN_TRACK, "args": {"name": "mal_tpu_torch spans"}})
+    for name, start, end, parent, step in records.spans:
+        if end is not None:
+            events.append({"ph": "X", "cat": "span", "name": name, "pid": pid,
+                           "tid": SPAN_TRACK, "ts": (start - base) / 1e3,
+                           "dur": (end - start) / 1e3,
+                           "args": {"parent": parent, "step": step}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def cuda_time_ms(fn: Callable, reps: int, warmup: int = 2) -> float:
@@ -109,23 +226,3 @@ def idle_share(one_step: Callable):
     print(f"profiled step {wall_ms:.2f} ms, kernels {busy_ms:.2f} ms: "
           f"device idle share {idle:.3f}")
     return idle, busy_ms, prof
-
-
-class ExamplesPerSec:
-    """Throughput meter (the reference's unused `log_time` helper,
-    `manydepth/trainer.py:1521-1531`, actually wired up)."""
-
-    def __init__(self, window: int = 50):
-        self.window = window
-        self._t0 = time.perf_counter()
-        self._count = 0
-        self.value = 0.0
-
-    def update(self, batch_size: int) -> float:
-        self._count += batch_size
-        if self._count >= self.window * batch_size:
-            now = time.perf_counter()
-            self.value = self._count / (now - self._t0)
-            self._t0 = now
-            self._count = 0
-        return self.value
