@@ -3139,7 +3139,9 @@ def maskformer_v1_phase(kernels: list, every: list) -> dict[str, dict]:
               and int(pan.seg.max()) <= int(pan.ids.max()),
               "v1 panoptic output")
         forward_ms = timed_ms(lambda: model(images))
-        feats = model.backbone(preprocess_images(images, model.bgr_input))
+        feats = model.backbone(preprocess_images(
+            images, model.bgr_input, mean=model.pixel_mean,
+            std=model.pixel_std))
         head_ms, heads = {}, {}
         for enc in (False, True):
             name = "transformer_enc" if enc else "fpn"

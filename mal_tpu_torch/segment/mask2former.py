@@ -17,6 +17,9 @@ import torch
 import torch.nn as nn
 
 from mal_tpu_torch.device import resolve_device
+from mal_tpu_torch.ops.cuda.deform_sample import ms_deform_attn_core
+from mal_tpu_torch.ops.cuda.swin_block import swin_attn_fused, swin_mlp_fused
+from mal_tpu_torch.ops.cuda.window_attention import window_attention
 from mal_tpu_torch.ops.interp import resize_bilinear
 from mal_tpu_torch.segment.criterion import (CriterionConfig,
                                              set_criterion_deep, weight_dict,
@@ -37,19 +40,34 @@ _PIXEL_MEAN = (123.675, 116.28, 103.53)
 _PIXEL_STD = (58.395, 57.12, 57.375)
 
 
-def preprocess_images(images: Tensor, bgr_input: bool = True) -> Tensor:
+def register_pixel_stats(model: nn.Module) -> None:
+    """Give `model` the normalisation's mean and std as non-persistent
+    buffers `pixel_mean` and `pixel_std` (not in the state dict, so the
+    checkpoints' keys are unchanged): made once on the host, they move with
+    the model, and a forward copies nothing from the host."""
+    model.register_buffer("pixel_mean", torch.tensor(_PIXEL_MEAN),
+                          persistent=False)
+    model.register_buffer("pixel_std", torch.tensor(_PIXEL_STD),
+                          persistent=False)
+
+
+def preprocess_images(images: Tensor, bgr_input: bool = True, *,
+                      mean: Tensor, std: Tensor) -> Tensor:
     """The reference's segmenter preprocessing of (B, H, W, 3) RGB frames in
     [0, 1]: it feeds Mask2Former **BGR** frames (`manydepth/dyn_utils.py:
     176-178`) that detectron2 then normalises with RGB-ordered means
     (`maskformer_model.py:193-195`). The mismatch is the released models'
     behaviour and is kept by default; `bgr_input=False` is the
-    colour-correct form fine-tuning uses (`mal_tpu/cli.py:436-437`)."""
+    colour-correct form fine-tuning uses (`mal_tpu/cli.py:436-437`).
+    `mean` and `std`: a model's `pixel_mean` and `pixel_std`
+    (`register_pixel_stats`), on the frames' device. The frames are made
+    contiguous first, so that the model's output does not depend on the
+    layout the caller's frames have (a permuted view of NCHW frames would
+    carry its layout into the patch embedding, whose convolution then takes
+    another algorithm)."""
+    images = images.contiguous()
     if bgr_input:
         images = images.flip(-1)
-    # two copies from host lists, each of which synchronises with the device
-    mean = torch.tensor(_PIXEL_MEAN, device=images.device)
-    std = torch.tensor(_PIXEL_STD, device=images.device)
-    profiling.count("host_syncs", 2)
     return (images * 255.0 - mean) / std
 
 
@@ -146,6 +164,7 @@ class Mask2Former(nn.Module):
             with torch.no_grad():
                 init_like_flax(self, generator
                                or torch.Generator().manual_seed(0))
+        register_pixel_stats(self)
         self.eval()
         self.requires_grad_(False)   # frozen
         self.to(device)
@@ -161,7 +180,9 @@ class Mask2Former(nn.Module):
         autograd runs, and Swin drop-path with keep-masks from `generator`;
         `train=False` launches kernels K4 and K5 on CUDA tensors (K2 and K3
         with `fused_swin`), which take no gradient."""
-        feats = self.backbone(preprocess_images(images, self.bgr_input),
+        feats = self.backbone(preprocess_images(images, self.bgr_input,
+                                                mean=self.pixel_mean,
+                                                std=self.pixel_std),
                               train, generator)
         mask_features, multi_scale = self.sem_seg_head.pixel_decoder(feats,
                                                                      train)
@@ -175,6 +196,16 @@ def instance_inference(pred_logits: Tensor, pred_masks: Tensor, out_h: int,
     scores without the background, a fixed top-`max_instances` over
     (queries x classes), mask logits upsampled and thresholded at 0, and
     the score times the mean in-mask probability."""
+    return instances_from_top(
+        *top_queries(pred_logits, pred_masks, max_instances), out_h, out_w)
+
+
+def top_queries(pred_logits: Tensor, pred_masks: Tensor, max_instances: int
+                ) -> tuple[Tensor, Tensor, Tensor]:
+    """`instance_inference`'s choice: the top-`max_instances` (query,
+    class) pairs by class-softmax score without the background. Returns
+    their (B, N) scores and classes and their queries' mask logits (B, N,
+    H/4, W/4)."""
     B, Q, K1 = pred_logits.shape
     K = K1 - 1
     scores = pred_logits.softmax(dim=-1)[..., :K].reshape(B, Q * K)
@@ -183,6 +214,14 @@ def instance_inference(pred_logits: Tensor, pred_masks: Tensor, out_h: int,
     top_class = top_idx % K
     h, w = pred_masks.shape[-2:]
     masks = pred_masks.gather(1, top_q[:, :, None, None].expand(-1, -1, h, w))
+    return top_scores, top_class, masks
+
+
+def instances_from_top(top_scores: Tensor, top_class: Tensor, masks: Tensor,
+                       out_h: int, out_w: int) -> Instances:
+    """The rest of `instance_inference` on `top_queries`' choice: the mask
+    logits upsampled and thresholded at 0, the scores times the mean
+    in-mask probability."""
     masks_up = resize_bilinear(masks, out_h, out_w)
     binary = (masks_up > 0.0).to(torch.float32)
     prob = masks_up.sigmoid()
@@ -220,15 +259,87 @@ def mask2former_train_loss(model: Mask2Former, images: Tensor,
     return total, losses
 
 
+class _SegmenterGraph:
+    """`fn(images)` at one input shape and dtype, captured once as a CUDA
+    graph: `graph(images)` copies the images into the static input,
+    replays, and returns the static outputs, which the next replay
+    overwrites. The kernel wrappers' `.launches` gain at each replay what
+    the capture counted, so they count the launches the device ran."""
+
+    def __init__(self, fn, images: Tensor):
+        self.input = torch.empty(images.shape, dtype=images.dtype,
+                                 device=images.device)
+        before = [f.launches for f in _COUNTED]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            # thread-local: a loader thread's copies do not break the capture
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.outputs = fn(self.input)
+            self.launches = [f.launches - n for f, n in zip(_COUNTED, before)]
+        finally:
+            for f, n in zip(_COUNTED, before):
+                f.launches = n   # the capture launched nothing
+        profiling.count("seg_graph_captures")
+
+    def __call__(self, images: Tensor) -> tuple:
+        self.input.copy_(images)
+        self.graph.replay()
+        for f, n in zip(_COUNTED, self.launches):
+            f.launches += n
+        profiling.count("seg_graph_replays")
+        return self.outputs
+
+
+# the kernel wrappers an inference forward may launch, whose `.launches`
+# count their launches
+_COUNTED = (swin_attn_fused, swin_mlp_fused, window_attention,
+            ms_deform_attn_core)
+
+
 def make_seg_fn(model: Mask2Former, max_instances: int):
     """`seg_fn(images (B, H, W, 3)) -> Instances`, the temporal hint's
     segmenter: the frozen model under `torch.no_grad()` on detached frames
-    (the reference runs Mask2Former under no_grad, `dyn_utils.py:185-186`)."""
+    (the reference runs Mask2Former under no_grad, `dyn_utils.py:185-186`),
+    then `instance_inference`.
+
+    On a CUDA device the forward and `instance_inference`'s choice of
+    queries (`top_queries`) are replayed as a CUDA graph, one for each
+    input (shape, dtype): the first call of a shape runs eagerly (the
+    warm-up, which forward hooks see), the second captures and replays,
+    every later one copies the images into the graph's static input and
+    replays. A shape seen once is never captured. The upsampling of the
+    chosen masks (`instances_from_top`) runs eagerly on the graph's
+    outputs, and what it returns shares no memory with them. The graph
+    keeps its static input and outputs allocated while `seg_fn` lives (at
+    batch 12, 192x640 and 16 instances: 17.7 MB of input, 5.9 MB of
+    masks; with cuBLAS's workspace for the capture's stream, 57.7 MB on an
+    H100), and its private pool holds the memory of a forward's
+    intermediates (reserved, not allocated, between replays). It reads
+    the weights where they are: a weight loaded in place
+    (`load_state_dict`, `copy_`) is seen by the next replay, a parameter
+    replaced by another tensor is not. Hooks attached after the capture do
+    not run at a replay. `Mask2Former.forward` itself stays eager; on the
+    CPU so does every call."""
+    graphs: dict = {}   # (shape, dtype) -> None once seen, then its graph
+
+    def top(images: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+        return top_queries(*model(images), max_instances)
+
+    def forward(images: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+        if images.device.type != "cuda":
+            return top(images)
+        key = (tuple(images.shape), images.dtype)
+        if key not in graphs:
+            graphs[key] = None
+            return top(images)
+        if graphs[key] is None:
+            graphs[key] = _SegmenterGraph(top, images)
+        return graphs[key](images)
 
     def seg_fn(images: Tensor) -> Instances:
         H, W = images.shape[1:3]
         with profiling.span("mal.segmenter"), torch.no_grad():
-            logits, masks = model(images.detach())
-            return instance_inference(logits, masks, H, W, max_instances)
+            return instances_from_top(*forward(images.detach()), H, W)
 
     return seg_fn

@@ -245,7 +245,8 @@ class MaskFormerV1(nn.Module):
                  device: str | torch.device | None = None,
                  generator: torch.Generator | None = None,
                  init_weights: bool = True):
-        from mal_tpu_torch.segment.mask2former import init_like_flax
+        from mal_tpu_torch.segment.mask2former import (init_like_flax,
+                                                       register_pixel_stats)
         from mal_tpu_torch.segment.swin import CONFIGS, SwinTransformer
 
         super().__init__()
@@ -264,6 +265,7 @@ class MaskFormerV1(nn.Module):
             with torch.no_grad():
                 init_like_flax(self, generator
                                or torch.Generator().manual_seed(0))
+        register_pixel_stats(self)
         self.eval()
         self.requires_grad_(False)   # frozen
         self.to(device)
@@ -274,7 +276,8 @@ class MaskFormerV1(nn.Module):
         with `return_aux` every decoder layer's, stacked."""
         from mal_tpu_torch.segment.mask2former import preprocess_images
 
-        feats = self.backbone(preprocess_images(images, self.bgr_input))
+        feats = self.backbone(preprocess_images(
+            images, self.bgr_input, mean=self.pixel_mean, std=self.pixel_std))
         mask_features, t_feats, _ = self.sem_seg_head.pixel_decoder(feats)
         return self.sem_seg_head.predictor(t_feats, mask_features,
                                            return_aux)

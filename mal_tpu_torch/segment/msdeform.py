@@ -45,6 +45,21 @@ class MSDeformAttn(nn.Module):
         self.attention_weights = nn.Linear(D_MODEL, samples)
         self.value_proj = nn.Linear(D_MODEL, D_MODEL)
         self.output_proj = nn.Linear(D_MODEL, D_MODEL)
+        self._sizes: dict = {}   # (spatial shapes, device) -> level sizes
+
+    def level_sizes(self, spatial_shapes: list[tuple[int, int]],
+                    device: torch.device) -> Tensor:
+        """(L, 2) fp32: each level's (w, h) on `device`, made at the first
+        call for these shapes and this device (a copy from a host list,
+        which synchronises with the device) and kept for the later ones."""
+        key = (tuple(spatial_shapes), device)
+        sizes = self._sizes.get(key)
+        if sizes is None:
+            sizes = torch.tensor([[w, h] for h, w in spatial_shapes],
+                                 dtype=torch.float32, device=device)
+            profiling.count("host_syncs")
+            self._sizes[key] = sizes
+        return sizes
 
     def forward(self, query: Tensor, reference_points: Tensor,
                 value_flat: Tensor, spatial_shapes: list[tuple[int, int]],
@@ -59,10 +74,7 @@ class MSDeformAttn(nn.Module):
         attn = self.attention_weights(query).reshape(B, Lq, H_, L * P)
         attn = attn.softmax(dim=-1).reshape(B, Lq, H_, L, P)
         # offsets are in pixels of each level: normalise by its (w, h)
-        # a copy from a host list, which synchronises with the device
-        sizes = torch.tensor([[w, h] for h, w in spatial_shapes],
-                             dtype=torch.float32, device=query.device)
-        profiling.count("host_syncs")
+        sizes = self.level_sizes(spatial_shapes, query.device)
         locs = (reference_points[:, :, None, :, None, :]
                 + offsets / sizes[None, None, None, :, None, :])
         core = ms_deform_attn_core_per_level if train else ms_deform_attn_core

@@ -193,8 +193,9 @@ def _close(got, want, tol, what):
 
 
 def test_preprocessing_and_position_embedding(seg):
-    _, _, images, jax_out = seg
-    _close(preprocess_images(torch.from_numpy(images)), jax_out["x"],
+    _, port, images, jax_out = seg
+    _close(preprocess_images(torch.from_numpy(images), mean=port.pixel_mean,
+                             std=port.pixel_std), jax_out["x"],
            dict(rtol=1e-6, atol=1e-5), "preprocess")   # values up to ~2.6
     for h, w in ((2, 3), (8, 12), (48, 160)):
         _close(position_embedding_sine(h, w), _np(j_pos(h, w)),
