@@ -14,6 +14,15 @@ after them. The numbers compared:
   the larger of the reference's norm of that leaf and the median leaf's.
   Leaves whose reference gradient is under a thousandth of the median
   leaf's move under Adam by round-off alone and are left out of both;
+- `grad_median_gap`, `change_median_gap`: the median leaf's gradient
+  and change gaps by the measure of `grad_gap` and `change_gap`: steady
+  from seed to seed where the worst leaf swings (a cell that compares
+  them in their place says why in PERF.md);
+- `grad_norm_gap.<group>`, `change_norm_gap.<group>`, for each group of
+  leaves that the workload's `leaf_groups` names by the prefixes of
+  their names: the gap of the group's whole first gradient and change
+  (the norm over its kept leaves' norms), |norm - reference norm| /
+  reference norm;
 - `state_gap`: the largest relative gap of the bins and the balancer;
 - `seg_features_gap` (cells with the temporal hint): the segmenter's
   features after K2 / K3 (the Swin backbone) and K5 (the pixel decoder's
@@ -24,6 +33,12 @@ after them. The numbers compared:
   the whole tensor. (The transformer decoder after them thresholds its
   attention masks at 0.5: rounding flips thousands of their entries, so
   its outputs' gap swings by seed, tenfold, over the same features.)
+- `confidence_flips`: the pixels whose cost-volume confidence (the depth
+  model's `consistency_mask`: every plane observed) in the first step's
+  forward differs between the two sides, over the reference's confident
+  pixels (at least 1), on the program's items (rank 0's shard is the
+  global batch's first items); beside it, not a gap, `confident_pixels`:
+  how many the reference has there;
 - `rank_gap` (several processes): the largest |parameter - rank 0's| of
   any rank after the compared steps, exact: the ranks apply one update.
 """
@@ -85,6 +100,23 @@ class SegmenterFeatures:
         return self.outputs
 
 
+class FirstOutput:
+    """Keep, on the host, the output `key` of a model's first forward
+    while attached (a forward hook); None where it gives none."""
+
+    def __init__(self, model: torch.nn.Module, key: str):
+        self.key, self.value = key, None
+        self.handle = model.register_forward_hook(self._keep)
+
+    def _keep(self, module, args, out) -> None:
+        if self.value is None and isinstance(out, dict) and self.key in out:
+            self.value = out[self.key].detach().cpu()
+
+    def detach(self) -> torch.Tensor | None:
+        self.handle.remove()
+        return self.value
+
+
 def _relative_gap(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float(torch.linalg.vector_norm(got - ref)
                  / torch.linalg.vector_norm(ref))
@@ -111,8 +143,20 @@ def _worst_leaf(got: list[float], ref: list[float], keep: list[bool],
                 for g, r, k in zip(got, ref, keep) if k), default=0.0)
 
 
-def numbers(prog: dict, ref: dict) -> dict[str, float]:
-    """The compared numbers of two sides' readings (see the module)."""
+def _median_leaf(got: list[float], ref: list[float], keep: list[bool],
+                 floor: float) -> float:
+    return statistics.median(abs(g - r) / max(r, floor)
+                             for g, r, k in zip(got, ref, keep) if k)
+
+
+def _group_norm(norms: list[float], member: list[bool]) -> float:
+    return sum(n * n for n, m in zip(norms, member) if m) ** 0.5
+
+
+def numbers(prog: dict, ref: dict,
+            groups: dict[str, list[str]] | None = None) -> dict[str, float]:
+    """The compared numbers of two sides' readings (see the module);
+    `groups` maps a group's name to the prefixes of its leaves' names."""
     if prog["names"] != ref["names"]:
         raise ValueError("the program's and the reference's leaves differ")
     loss = max(abs(p - r) / abs(r) for p, r in zip(prog["loss"], ref["loss"]))
@@ -123,12 +167,31 @@ def numbers(prog: dict, ref: dict) -> dict[str, float]:
                 for k, v in ref["state"].items() if v != 0.0)
     out = {"loss_gap": loss,
            "grad_gap": _worst_leaf(prog["grad"], ref["grad"], keep, g_med),
+           "grad_median_gap": _median_leaf(prog["grad"], ref["grad"], keep,
+                                           g_med),
            "change_gap": _worst_leaf(prog["change"], ref["change"], keep,
                                      c_med),
+           "change_median_gap": _median_leaf(prog["change"], ref["change"],
+                                             keep, c_med),
            "state_gap": state}
+    for group, prefixes in (groups or {}).items():
+        member = [k and n.startswith(tuple(prefixes))
+                  for n, k in zip(ref["names"], keep)]
+        if not any(member):
+            raise ValueError(f"leaf group {group!r} has no leaf")
+        for kind in ("grad", "change"):
+            want = _group_norm(ref[kind], member)
+            out[f"{kind}_norm_gap.{group}"] = (
+                abs(_group_norm(prog[kind], member) - want) / want)
     if prog.get("seg") and ref.get("seg"):
         out["seg_features_gap"] = max(
             _relative_gap(p, r) for p, r in zip(prog["seg"], ref["seg"]))
+    if prog.get("confidence") is not None and ref.get("confidence") is not None:
+        got = prog["confidence"]
+        want = ref["confidence"][:got.shape[0]]
+        out["confidence_flips"] = float((got != want).sum()
+                                        / want.sum().clamp(min=1))
+        out["confident_pixels"] = float(want.sum())
     if "rank_gap" in prog:
         out["rank_gap"] = prog["rank_gap"]
     return out

@@ -48,6 +48,15 @@ def no_exchange(step):
     return broken
 
 
+def no_domd(step):
+    """The batch's dynamic-object masks (`doj_mask*`) left out, so that
+    DynamicDepth's step skips the DOMD warp it needs them for."""
+    def broken(st, batch, epoch=0.0, generator=None, draws=None):
+        kept = {k: v for k, v in batch.items() if not k.startswith("doj_mask")}
+        return step(st, kept, epoch, generator, draws)
+    return broken
+
+
 def _patched(step, module, name: str, make):
     """`step` with `module.name` replaced by `make(original)` while it
     runs."""
@@ -86,6 +95,34 @@ def k2_zeroed(step):
     return _patched(step, swin, "swin_attn_fused", make)
 
 
+def k6_zeroed(step):
+    """K6 (the occlusion-aware plane-sweep differences of DynamicDepth's
+    cost volume) returning zeros: every plane of every pixel reads as
+    missing."""
+    from mal_tpu_torch.dynamic import cost_volume
+
+    def make(kernel):
+        def zeroed(*args, **kwargs):
+            return torch.zeros_like(kernel(*args, **kwargs))
+        return zeroed
+    return _patched(step, cost_volume, "plane_sweep_diffs_occ", make)
+
+
+def k6_twin(step):
+    """Not a fault, a witness: DynamicDepth's cost volume computed by the
+    port's plain twin (`occlusion_aware_cost_volume`, `F.grid_sample`)
+    where the step launches K6, as the reference computes it."""
+    from mal_tpu_torch.dynamic import cost_volume, model
+
+    def make(kernel):
+        def twin(*args, cv_min=False, set_1=False, pool_th=0.7):
+            return cost_volume.occlusion_aware_cost_volume(
+                *args, cv_min=cv_min, set_1=set_1, pool_th=pool_th)
+        return twin
+    return _patched(step, model, "occlusion_aware_cost_volume_kernel", make)
+
+
 FAULTS = {"unchanged": unchanged, "half_batch": half_batch,
           "no_exchange": no_exchange, "k5_negated": k5_negated,
-          "k2_zeroed": k2_zeroed}
+          "k2_zeroed": k2_zeroed, "no_domd": no_domd, "k6_zeroed": k6_zeroed}
+VARIANTS = {**FAULTS, "k6_twin": k6_twin}   # what the readings tool plants

@@ -2,7 +2,8 @@
 its operations and bytes for the inputs of one launch, copied frozen from
 `chip_smoke.py:_k1_measure`, and the samples those inputs make it compute,
 from K1's own projection and border masks (the plain version's
-arithmetic, which the kernel reproduces to the bit)."""
+arithmetic, which the kernel reproduces to the bit). `capture` keeps
+each launch's geometry from the inputs of the port's matching encoder."""
 
 from __future__ import annotations
 
@@ -10,6 +11,23 @@ import torch
 
 KERNEL_NAMES = ("plane_sweep_diffs_kernel",)
 CHANNELS = 64      # the matching features: a ResNet's stage-1 width
+
+
+def capture(model: torch.nn.Module, sink: list):
+    """Keep the geometry that K1 is launched on in each forward of the
+    port's matching encoder (poses, K, inv_K at the matching scale, the
+    bins' ends); None for a model without one."""
+    encoder = next((m for m in model.modules()
+                    if type(m).__name__ == "ResnetEncoderMatching"), None)
+
+    def keep(module, args):
+        image, _, poses, K, inv_K, lo, hi = args
+        sink.append({"shape": tuple(image.shape), "poses": poses.detach(),
+                     "K": K.detach(), "inv_K": inv_K.detach(),
+                     "min": lo.detach().clone(), "max": hi.detach().clone(),
+                     "planes": module.num_depth_bins})
+
+    return None if encoder is None else encoder.register_forward_pre_hook(keep)
 
 
 def depth_bins(min_depth: torch.Tensor, max_depth: torch.Tensor,

@@ -1,8 +1,8 @@
 """K1's share of its roofline on rank 0: the sum of each profiled
 launch's bound (`kernels/plane_sweep.py`, fp32 peak: the kernel computes
 in fp32 in every mode) over K1's device time in the profile. The counts
-need each launch's geometry, which the harness keeps from the inputs of
-the port's matching encoder during the profiled steps."""
+need each launch's geometry, which `kernels/plane_sweep.py:capture` keeps
+from the inputs of the port's matching encoder during the profiled steps."""
 
 from gpubench import trace
 from gpubench.kernels import plane_sweep
@@ -12,7 +12,7 @@ from gpubench.peaks import PEAK_FLOPS, bound_s
 def read(ctx):
     t = ctx.run.trace
     seconds, n = trace.device_s(t, plane_sweep.KERNEL_NAMES)
-    launches = ctx.run.k1_inputs
+    launches = ctx.run.captured.get("plane_sweep", [])
     if not n or n != len(launches):
         return None
     bound = 0.0

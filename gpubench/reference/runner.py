@@ -2,6 +2,12 @@
 copy's training step, in one process, from the seed's weights on the
 global batch of the same pool entries and draws the program stepped on.
 
+The configuration's `port_config` names the depth method ("manydepth"
+where it names none). ManyDepth's reference is the modules beside this
+one; any other method's is the package `gpubench/reference/<method>/`,
+found by that name, with `build(config, seed, device, batch)` and
+`make_train_step(cfg, device, seg_fn=None)` as below.
+
 `items` keeps part of each batch (a fault: half of the batch left out,
 the mean over the rest; or one process's shard alone: the exchange
 between processes left out). `products` runs it under the control's
@@ -10,10 +16,27 @@ rounding (`gpubench/control.py`)."""
 from __future__ import annotations
 
 import contextlib
+import importlib
+from pathlib import Path
 
 import torch
 
 from gpubench import compare, traffic
+
+HERE = Path(__file__).resolve().parent
+
+
+def method_package(config: dict):
+    """The reference package of the configuration's method, or None for
+    ManyDepth, whose reference this module builds itself."""
+    method = config["port_config"].get("method", "manydepth")
+    if method == "manydepth":
+        return None
+    if not (HERE / method / "__init__.py").is_file():
+        raise FileNotFoundError(
+            f"method {method!r} has no reference: gpubench/reference/"
+            f"{method}/ is missing")
+    return importlib.import_module(f"gpubench.reference.{method}")
 
 
 def make_config(port_config: dict, **changes):
@@ -28,6 +51,9 @@ def make_config(port_config: dict, **changes):
 def build(config: dict, seed: int, device: torch.device, batch: int):
     """(cfg, state, segmenter, seg_fn, names) of the reference at `batch`
     items, with the seed's weights."""
+    package = method_package(config)
+    if package is not None:
+        return package.build(config, seed, device, batch)
     from gpubench.reference.segment.mask2former import (Mask2Former,
                                                          make_seg_fn)
     from gpubench.reference.train.state import create_train_state
@@ -45,6 +71,16 @@ def build(config: dict, seed: int, device: torch.device, batch: int):
     return cfg, state, seg, seg_fn, names
 
 
+def make_train_step(config: dict, cfg, device: torch.device, seg_fn=None):
+    """The reference's training step for `cfg`, made by `build`."""
+    package = method_package(config)
+    if package is not None:
+        return package.make_train_step(cfg, device, seg_fn=seg_fn)
+    from gpubench.reference.train.step import make_train_step as make
+
+    return make(cfg, device, seg_fn=seg_fn)
+
+
 def take_items(tree, items: slice):
     """The items `items` of every tensor of a batch or its draws."""
     if isinstance(tree, dict):
@@ -59,7 +95,6 @@ def readings(cell, seed: int, device: torch.device,
     TF32-off fp32, or the configuration's bf16 fast mode, as its
     `port_config` states."""
     from gpubench.control import RoundedProducts
-    from gpubench.reference.train.step import make_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -67,12 +102,13 @@ def readings(cell, seed: int, device: torch.device,
     per = config["port_config"].get("batch_size", 12)
     n = len(range(shards * per)[items or slice(None)])
     cfg, state, seg, seg_fn, names = build(config, seed, device, n)
-    step = make_train_step(cfg, device, seg_fn=seg_fn)
+    step = make_train_step(config, cfg, device, seg_fn=seg_fn)
     start = compare.snapshot(state.optimizer)
     out = {"loss": [], "names": compare.leaf_names(state.model,
                                                    state.optimizer)}
     mode = RoundedProducts(products) if products else contextlib.nullcontext()
     seg_out = compare.SegmenterFeatures(seg)
+    cost_out = compare.FirstOutput(state.model, "consistency_mask")
     for i in range(cell.workload["compared_steps"]):
         batch, draws = traffic.global_inputs(cell.traffic,
                                              config["port_config"], seed, i,
@@ -85,6 +121,7 @@ def readings(cell, seed: int, device: torch.device,
         if i == 0:
             out["grad"] = compare.grad_norms(state.optimizer)
             out["seg"] = seg_out.detach()
+            out["confidence"] = cost_out.detach()
     out["change"] = compare.change_norms(state.optimizer, start)
     out["state"] = compare.state_values(state.bins, state.balancer)
     out["weights"] = names

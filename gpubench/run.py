@@ -174,6 +174,7 @@ def report(result: dict | None) -> int:
     if result is None:
         return 0
     found = result.pop("forbidden")
+    result.pop("numbers")
     if found:
         print(f"gpubench: loaded {found}: the benchmark may load neither "
               f"JAX nor the JAX package", file=sys.stderr)
@@ -208,7 +209,7 @@ def judge(cell, args, run, others: list, device) -> dict:
     t0 = time.perf_counter()
     ref = runner.readings(cell, args.seed, device)
     train_cell.log("reference", t0)
-    numbers = compare.numbers(run.readings, ref)
+    numbers = compare.numbers(run.readings, ref, wl.get("leaf_groups"))
     ok, table = compare.judge(numbers, wl["limits"])
     nonfinite = max(o["failed"] for o in others)   # global steps: alike
     same_weights = run.readings["weights"] == ref["weights"]
@@ -227,6 +228,7 @@ def judge(cell, args, run, others: list, device) -> dict:
         result["breakdown"] = breakdown
     result["compared"] = {**table, "nonfinite_steps": [nonfinite, 0],
                           "same_weights": [int(same_weights), 1]}
+    result["numbers"] = numbers     # all of them, for the readings tool
     return result
 
 
@@ -234,7 +236,7 @@ def judge(cell, args, run, others: list, device) -> dict:
 class Context:
     """What a metric's reader reads: the cell, rank 0's run (its window,
     step periods and set-up, its traces, the program's launch counters,
-    K1's inputs), every process's peak bytes, busy and window seconds, and
+    the kernels' launch inputs that `kernels/` kept), every process's peak bytes, busy and window seconds, and
     the global batch."""
     cell: object
     run: object

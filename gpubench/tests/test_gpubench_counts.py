@@ -1,12 +1,14 @@
 """The frozen operation and byte counts, worked by hand at small shapes,
-and the FLOP counter the configurations' model FLOPs come from."""
+and the FLOP counter the configurations' model FLOPs come from; the launch
+inputs the kernel files keep."""
 
+import pytest
 import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
 from gpubench import peaks
-from gpubench.kernels import plane_sweep, swin_block
+from gpubench.kernels import plane_sweep, plane_sweep_occ, swin_block
 
 
 def test_plane_sweep_counts_by_hand():
@@ -73,3 +75,100 @@ def test_flop_counter_by_hand():
         a @ b
     # conv: 2 x (N Hout Wout) x Cout x (Cin k k); matmul: 2 m k n
     assert mode.get_total_flops() == 2 * (2 * 8 * 8) * 4 * 27 + 2 * 5 * 7 * 6
+
+
+def test_plane_sweep_occ_samples_match_the_twin(monkeypatch):
+    """K6's counts at the tiny size on the CPU: the geometry that
+    `plane_sweep_occ` works out again from a captured forward is the one
+    the port's cost volume was given, and its samples inside the masks,
+    tested and occluded equal those of the plain twin's own projection,
+    border masks and occlusion test, for a batch with a static-camera, a
+    zeroed and a plain item (draws 0.1, 0.4, 0.9)."""
+    from gpubench import traffic, train_cell
+    from gpubench.kernels import plane_sweep_occ
+    from gpubench.reference.dynamicdepth.cost_volume import (
+        occlusion_aware_cost_volume)
+    from gpubench.tests.tiny import tiny_cell
+    from mal_tpu_torch.dynamic import model as dynamic_model
+
+    cpu = torch.device("cpu")
+    cell = tiny_cell("dynamicdepth_fp32.precomputed_doj")
+    config = dict(cell.config)
+    config["port_config"] = dict(config["port_config"], batch_size=3)
+    state, step, _, _ = train_cell.build_system(config, 5, cpu)
+    batch, draws = traffic.shard_inputs(cell.traffic, config["port_config"],
+                                        5, 0, 0, cpu)
+    draws["matching_aug"] = torch.tensor([0.1, 0.4, 0.9])
+    given = []
+    volume = dynamic_model.occlusion_aware_cost_volume_kernel
+
+    def record(*args, **kwargs):
+        given.append((args, kwargs))
+        return volume(*args, **kwargs)
+
+    monkeypatch.setattr(dynamic_model, "occlusion_aware_cost_volume_kernel",
+                        record)
+    kept = []
+    hook = plane_sweep_occ.capture(state.model, kept)
+    step(state, batch, 0.0, draws=draws)
+    hook.remove()
+    assert len(kept) == len(given) == 1
+    g = plane_sweep_occ.launch_inputs(kept[0])
+    (cur, lookup, poses, K, inv_K, bins, images, aug_mask), kw = given[0]
+    assert torch.equal(g["poses"], poses) and torch.equal(g["K"], K)
+    assert torch.equal(g["inv_K"], inv_K) and torch.equal(g["bins"], bins)
+    assert torch.equal(g["apply"], aug_mask == 0)
+    assert g["apply"].tolist() == [False, False, True]
+    assert g["pool_th"] == kw["pool_th"]
+    found = plane_sweep_occ.samples(g["poses"], g["K"], g["inv_K"], g["bins"],
+                                    g["occ"], g["apply"], g["pool_th"],
+                                    g["h"], g["w"])
+    # the twin on the launch's own geometry, current features 0 and lookup
+    # features 2: a sample inside the masks reads 2, or 1 where occluded,
+    # and one outside them is missing
+    with torch.no_grad():
+        cost, missing = occlusion_aware_cost_volume(
+            torch.zeros_like(cur), torch.full_like(lookup, 2.0), poses, K,
+            inv_K, bins, images, aug_mask, set_1=True,
+            pool_th=kw["pool_th"])
+    inside = missing == 0
+    applied = g["apply"][:, None, None, None]
+    assert found["inside"] == int(inside.sum()) > 0
+    assert found["tested"] == int((inside & applied).sum())
+    assert found["occluded"] == int((inside & (cost < 1.5)).sum())
+    assert 0 < found["occluded"] < found["tested"]
+
+
+def test_plane_sweep_occ_counts_by_hand():
+    # 2 frames of 4x8 features of 8 channels, 3 planes; 10 samples inside
+    # the masks, 6 of them tested, 2 occluded; 1 frame applies the test
+    found = {"inside": 10, "tested": 6, "occluded": 2}
+    n_bytes, n_ops = plane_sweep_occ.counts(2, 4, 8, 3, found, 1, channels=8)
+    assert n_bytes == 4 * (2 * 512 + 64 + 2 + 18 + 6 + 3 + 192)
+    assert n_ops == 10 * 192 + 15 * 10 + 8 * 6 + 72 * 8 + 2 * 8 * 32
+
+
+@pytest.mark.parametrize("name, kept", [
+    ("mal_swinl_bf16.temporal_hint", "plane_sweep"),
+    ("dynamicdepth_fp32.precomputed_doj", "plane_sweep_occ")])
+def test_capture_keeps_the_launches_of_the_models_kernel(name, kept):
+    """`kernels.capture` hooks every kernel file's `capture` on the model:
+    one step of each model keeps the inputs of its one cost-volume launch,
+    and nothing for the other kernel."""
+    from gpubench import kernels, traffic, train_cell
+    from gpubench.tests.tiny import tiny_cell
+
+    cpu = torch.device("cpu")
+    cell = tiny_cell(name)
+    state, step, _, _ = train_cell.build_system(cell.config, 3, cpu)
+    batch, draws = traffic.shard_inputs(cell.traffic,
+                                        cell.config["port_config"], 3, 0, 0,
+                                        cpu)
+    captured = {}
+    hooks = kernels.capture(state.model, captured)
+    step(state, batch, 0.0, draws=draws)
+    for hook in hooks:
+        hook.remove()
+    assert set(captured) == {"plane_sweep", "plane_sweep_occ"}
+    assert len(captured[kept]) == 1
+    assert [k for k, v in captured.items() if v] == [kept]

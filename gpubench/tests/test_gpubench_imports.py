@@ -19,7 +19,8 @@ import torch
 torch.set_num_threads(2)
 from gpubench import run
 from gpubench.tests.tiny import args, tiny_cell
-for name in ("mal_swinl_bf16.temporal_hint", "mal_distil_fp32.dp4"):
+for name in ("mal_swinl_bf16.temporal_hint", "mal_distil_fp32.dp4",
+             "dynamicdepth_fp32.precomputed_doj"):
     result = run.measure(tiny_cell(name), args(3), torch.device("cpu"), 0, 1, [])
     assert result["correct"], result
 top = sorted({m.split(".")[0] for m in sys.modules})

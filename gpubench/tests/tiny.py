@@ -1,6 +1,8 @@
-"""A cell cut to a size the CPU tests can run: 64x96 frames, 2 items, 16
-depth planes, a Swin-T segmenter of 8 queries (its blocks unfused: the
-fused blocks are kernels), a pool of 3 batches.
+"""A cell cut to a size the CPU tests can run, whatever its method: 64x96
+frames, 2 items, 16 depth planes, a Swin-T segmenter of 8 queries (its
+blocks unfused: the fused blocks are kernels), a pool of 3 batches; and
+whatever more the method's reference package cuts in its
+`tiny_cut(config) -> config`, where it has one.
 
 Besides the cells of `BENCHMARK.json`, the tests drive the four-card
 data-parallel cell, whose files are here but which `BENCHMARK.json` does
@@ -12,6 +14,7 @@ import argparse
 import dataclasses
 
 from gpubench import spec
+from gpubench.reference import runner
 
 
 PENDING = {"mal_distil_fp32.dp4": {"config": "mal_distil_fp32",
@@ -34,6 +37,9 @@ def tiny_cell(name: str, chips: int = 1) -> spec.Cell:
                                    num_queries=8, fused_swin=False)
     config["port_config"] = pc
     config["model_flops_per_frame"] = None   # counted at the full size only
+    cut = getattr(runner.method_package(config), "tiny_cut", None)
+    if cut is not None:
+        config = cut(config)
     wl = dict(cell.workload, min_steps=2, profiled_steps=1)
     if chips == 1:
         wl["limits"] = {k: v for k, v in wl["limits"].items()

@@ -24,12 +24,10 @@ from gpubench.reference import runner
 
 
 def count(cell, seed: int, device: torch.device) -> float:
-    from gpubench.reference.train.step import make_train_step
-
     config = cell.config
     batch_size = config["port_config"].get("batch_size", 12)
     cfg, state, _, seg_fn, _ = runner.build(config, seed, device, batch_size)
-    step = make_train_step(cfg, device, seg_fn=seg_fn)
+    step = runner.make_train_step(config, cfg, device, seg_fn=seg_fn)
     batch, draws = traffic.shard_inputs(cell.traffic, config["port_config"],
                                         seed, 0, 0, device)
     with FlopCounterMode(display=False) as mode:

@@ -13,7 +13,8 @@ window of one step, against the reference (`run.measure`, one process):
 
 - `program`: sound, the lower readings;
 - `program.<fault>`: with a fault of `faults.py` planted under the step
-  (`program.k2_zeroed`, `program.k5_negated`).
+  (`program.k2_zeroed`, `program.k5_negated`), or a witness in a kernel's
+  place (`program.k6_twin`: K6's plain twin).
 
 A state left unchanged reads 1 on `change_gap` by the comparison's
 measure and needs no run.
@@ -44,8 +45,9 @@ def variant_readings(cell, seed: int, variant: str, device) -> dict:
 
 
 def program_numbers(cell, seed: int, variant: str, device) -> dict:
-    """The program's compared numbers, sound (`program`) or with a fault
-    (`program.<fault>`), from a run with a window of one step."""
+    """The program's numbers, compared or not, sound (`program`), with a
+    fault (`program.<fault>`) or with a witness in a kernel's place
+    (`program.<witness>`), from a run with a window of one step."""
     if cell.chips != 1:
         raise ValueError(f"{variant}: the program's readings of a cell on "
                          f"{cell.chips} cards come from its own runs")
@@ -54,8 +56,8 @@ def program_numbers(cell, seed: int, variant: str, device) -> dict:
                                                 "min_steps": 1})
     args = argparse.Namespace(seed=seed, seconds=0.0, trace=0)
     result = run.measure(short, args, device, 0, 1, [],
-                         fault=faults.FAULTS[fault] if fault else None)
-    return {k: v for k, (v, _) in result["compared"].items()}
+                         fault=faults.VARIANTS[fault] if fault else None)
+    return result["numbers"]
 
 
 def main() -> None:
@@ -84,7 +86,8 @@ def main() -> None:
             got = variant_readings(cell, seed, variant, device)
             print(json.dumps({"workload": cell.name, "seed": seed,
                               "variant": variant,
-                              "numbers": compare.numbers(got, ref),
+                              "numbers": compare.numbers(
+                                  got, ref, cell.workload.get("leaf_groups")),
                               "excluded_leaves": len(compare.excluded(ref)),
                               "loss": got["loss"], "ref_loss": ref["loss"]}),
                   flush=True)

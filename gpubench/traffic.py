@@ -12,6 +12,15 @@ and height). Item sizes and frame ids come from the configuration's
 `port_config`. The batches have the port's `synthetic_batch` format
 (`mal_tpu_torch/data/synthetic.py`, copied here frozen).
 
+A mix may also carry `doj`, dynamic-object masks: each item's frame 0
+holds a uniform number of axis-aligned boxes in `boxes` [lo, hi], each
+`width` and `height` [lo, hi] pixels, uniform in place; each box moves by
+a uniform (dx, dy) in `shift_x` and `shift_y` [lo, hi] a frame, so frame
+f holds it shifted by f (dx, dy). The batch then has `doj_mask` and
+`doj_mask-1` / `doj_mask+1` (by the loss frames), each (B, H, W) float32
+in {0, 1}, the format `mal_tpu_torch/data/doj.py` loads. They are drawn
+after the draws, so a mix without them draws what it drew before.
+
 Data shard s of pool entry j is drawn from its own generator, seeded by
 (seed, j, s), so a process makes only its shard, and the reference the
 global batch by concatenating the shards in rank order.
@@ -80,13 +89,54 @@ def make_draws(cfg: dict, batch: int, generator: torch.Generator,
                                           generator=generator, device=device)}
 
 
+def _uniform_ints(u: torch.Tensor, bounds: list[int]) -> torch.Tensor:
+    """Whole numbers uniform in [lo, hi] from `u` uniform in [0, 1)."""
+    lo, hi = bounds
+    return (u * (hi - lo + 1)).floor().clamp(max=hi - lo) + lo
+
+
+def make_doj_masks(doj: dict, cfg: dict, batch: int,
+                   generator: torch.Generator, device: torch.device) -> dict:
+    """The dynamic-object masks of `batch` items (see the module)."""
+    H, W = cfg.get("height", 192), cfg.get("width", 640)
+    n = doj["boxes"][1]
+    count = _uniform_ints(torch.rand((batch, 1), generator=generator,
+                                     device=device), doj["boxes"])
+    u = torch.rand((6, batch, n), generator=generator, device=device)
+    w = _uniform_ints(u[0], doj["width"]).clamp(max=W)
+    h = _uniform_ints(u[1], doj["height"]).clamp(max=H)
+    x0 = (u[2] * (W - w + 1)).floor()
+    y0 = (u[3] * (H - h + 1)).floor()
+    dx = _uniform_ints(u[4], doj["shift_x"])
+    dy = _uniform_ints(u[5], doj["shift_y"])
+    kept = torch.arange(n, device=device) < count            # (B, n)
+    xs = torch.arange(W, dtype=torch.float32, device=device)
+    ys = torch.arange(H, dtype=torch.float32, device=device)
+
+    def raster(f: int) -> torch.Tensor:
+        left, top = x0 + f * dx, y0 + f * dy
+        inx = (xs >= left[..., None]) & (xs < (left + w)[..., None])
+        iny = (ys >= top[..., None]) & (ys < (top + h)[..., None])
+        boxes = iny[..., :, None] & inx[..., None, :] & kept[..., None, None]
+        return boxes.any(dim=1).to(torch.float32)             # (B, H, W)
+
+    out = {"doj_mask": raster(0)}
+    for f in frame_ids(cfg)[1:]:
+        out[f"doj_mask{f:+d}"] = raster(f)
+    return out
+
+
 def shard_inputs(mix: dict, cfg: dict, seed: int, entry: int, shard: int,
                  device: torch.device) -> tuple[dict, dict]:
     """(batch, draws) of data shard `shard` of pool entry `entry`."""
     g = torch.Generator(device=device)
     g.manual_seed(sub_seed(seed, entry, shard))
     B = cfg.get("batch_size", 12)
-    return make_batch(mix, cfg, B, g, device), make_draws(cfg, B, g, device)
+    batch = make_batch(mix, cfg, B, g, device)
+    draws = make_draws(cfg, B, g, device)
+    if "doj" in mix:
+        batch.update(make_doj_masks(mix["doj"], cfg, B, g, device))
+    return batch, draws
 
 
 def concat(parts: list[dict]) -> dict:

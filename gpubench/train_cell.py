@@ -25,7 +25,7 @@ import time
 
 import torch
 
-from gpubench import compare, trace, traffic
+from gpubench import compare, kernels, trace, traffic
 
 SEG_SPAN = "gpubench.segmenter"
 
@@ -45,7 +45,8 @@ class Run:
     trace: trace.Trace | None = None       # the device alone
     host_trace: trace.Trace | None = None  # with the host's operations
     launches: dict = dataclasses.field(default_factory=dict)
-    k1_inputs: list = dataclasses.field(default_factory=list)
+    # the launches' inputs each `kernels/<name>.py` with a `capture` kept
+    captured: dict = dataclasses.field(default_factory=dict)
 
 
 def log(what: str, t0: float) -> float:
@@ -68,8 +69,10 @@ def counted_wrappers() -> dict:
     from mal_tpu_torch.ops.cuda import (cost_volume_kernel, deform_sample,
                                         swin_block, window_attention)
 
-    fns = (cost_volume_kernel.plane_sweep_diffs, swin_block.swin_attn_fused,
-           swin_block.swin_mlp_fused, window_attention.window_attention,
+    fns = (cost_volume_kernel.plane_sweep_diffs,
+           cost_volume_kernel.plane_sweep_diffs_occ,
+           swin_block.swin_attn_fused, swin_block.swin_mlp_fused,
+           window_attention.window_attention,
            deform_sample.ms_deform_attn_core)
     return {f.__name__: f for f in fns}
 
@@ -190,6 +193,7 @@ def run(cell, seed: int, seconds: float, traced: bool, device: torch.device,
     # set-up: the compared steps, which also warm up every shape
     start = compare.snapshot(state.optimizer)
     seg_out = compare.SegmenterFeatures(seg)
+    cost_out = compare.FirstOutput(state.model, "consistency_mask")
     losses = []
     for i in range(wl["compared_steps"]):
         t0 = time.perf_counter()
@@ -200,13 +204,14 @@ def run(cell, seed: int, seconds: float, traced: bool, device: torch.device,
         if i == 0:
             grads = compare.grad_norms(state.optimizer)
             seg_first = seg_out.detach()
+            cost_first = cost_out.detach()
         t = log(f"compared step {i + 1}", t)
     out.readings = {
         "loss": losses, "grad": grads, "names": compare.leaf_names(
             state.model, state.optimizer),
         "change": compare.change_norms(state.optimizer, start),
         "state": compare.state_values(state.bins, state.balancer),
-        "seg": seg_first, "weights": names}
+        "seg": seg_first, "confidence": cost_first, "weights": names}
     if world > 1:
         out.readings["rank_gap"] = rank_gap(state.optimizer, sync)
     del start
@@ -246,13 +251,14 @@ def run(cell, seed: int, seconds: float, traced: bool, device: torch.device,
         out.unprofiled_steps = unprofiled
         counters = counted_wrappers() if device.type == "cuda" else {}
         before = {k: f.launches for k, f in counters.items()}
-        hook = _capture_k1_inputs(state.model, out.k1_inputs)
+        hooks = kernels.capture(state.model, out.captured)
         try:
             out.trace = trace.profile_steps(
                 lambda n: steps_from(first + unprofiled, n), profiled, sync,
                 time.perf_counter, host=False)
         finally:
-            hook.remove()
+            for hook in hooks:
+                hook.remove()
         out.host_trace = trace.profile_steps(
             lambda n: steps_from(first + unprofiled + profiled, n), profiled,
             sync, time.perf_counter, host=True)
@@ -268,25 +274,6 @@ def run(cell, seed: int, seconds: float, traced: bool, device: torch.device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return out
-
-
-def _capture_k1_inputs(model: torch.nn.Module, sink: list):
-    """Keep the geometry that K1 is launched on in each profiled step
-    (poses, K, inv_K at the matching scale, the bins' ends), from the
-    inputs of the port's matching encoder, for K1's operation count."""
-    encoder = next((m for m in model.modules()
-                    if type(m).__name__ == "ResnetEncoderMatching"), None)
-
-    def keep(module, args):
-        image, _, poses, K, inv_K, lo, hi = args
-        sink.append({"shape": tuple(image.shape), "poses": poses.detach(),
-                     "K": K.detach(), "inv_K": inv_K.detach(),
-                     "min": lo.detach().clone(), "max": hi.detach().clone(),
-                     "planes": module.num_depth_bins})
-
-    if encoder is None:
-        return _NoHook()
-    return encoder.register_forward_pre_hook(keep)
 
 
 class _Mark:
@@ -309,11 +296,6 @@ class _Mark:
         if self.event is not None:
             return self.event.elapsed_time(later.event)
         return (later.t - self.t) * 1e3
-
-
-class _NoHook:
-    def remove(self) -> None:
-        pass
 
 
 def p90(values: list[float]) -> float:
