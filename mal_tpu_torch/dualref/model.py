@@ -24,6 +24,15 @@ Fast mode (`compute_dtype="bfloat16"`): the HRNet and pose trunks compute
 in bf16 on fp32 parameters and their taps are cast back to fp32; the
 decoder, the DEQ solve and the Gauss-Newton step run in fp32
 (`mal_tpu/dualref/model.py:119-124,214`).
+
+Spans and counters (`utils/profiling.py`): `mal.dualref.trunk` around the
+HRNet, the decoder, the feature heads and the pose nets,
+`mal.dualref.solve` around the fixed-point solve, `mal.dualref.phantom`
+around the supervised unrolls, `mal.dualref.gauss_newton` around each
+`direct_align`; `deq_evaluations` counts the DEQ function's calls (in a
+training step at the defaults 8: the solve's 6, the phantom unroll's 1
+and its recompute in the backward), `host_syncs` the synchronising
+indexing by an argmin on the device.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ from mal_tpu_torch.models.resnet import (BatchNorm2d, ResNetFeatures,
                                          imagenet_normalize, remat)
 from mal_tpu_torch.ops.interp import resize_nearest
 from mal_tpu_torch.ops.precision import compute_dtype_of
+from mal_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -245,41 +255,45 @@ class DEQDepthPose(nn.Module):
         im1 = imagenet_normalize(image1)
         im2 = imagenet_normalize(image2)
 
-        # the stem runs on the concatenated pair, so that train-mode BN
-        # statistics pool both images (`depth_pose.py:203-213`); the stages
-        # and the decoder on image 1's half. Fast mode casts the taps back.
-        taps = self._trunk[0](torch.cat([im1, im2]), stages_count=B)
-        taps = {k: ([t.to(im1.dtype) for t in v] if isinstance(v, list)
-                    else v.to(im1.dtype)) for k, v in taps.items()}
-        taps1 = {**taps, "stem1": taps["stem1"][:B],
-                 "stem2": taps["stem2"][:B]}
-        disps, inter = self.decoder(taps1)
-        x2b = inter["relu_x18"]
-        fmap1 = self.conv2(taps1["stem2"])
-        fmap2 = self.conv2(taps["stem2"][B:])
-        inp = F.relu(self.context(x2b))
-        net0 = torch.tanh(self.hidden(x2b))
-        f2_pyramid = build_pyramid(fmap2, cfg.corr_levels)
-        K2 = geometry.scale_intrinsics(K_full, 2)
+        with profiling.span("mal.dualref.trunk"):
+            # the stem runs on the concatenated pair, so that train-mode BN
+            # statistics pool both images (`depth_pose.py:203-213`); the
+            # stages and the decoder on image 1's half. Fast mode casts the
+            # taps back.
+            taps = self._trunk[0](torch.cat([im1, im2]), stages_count=B)
+            taps = {k: ([t.to(im1.dtype) for t in v] if isinstance(v, list)
+                        else v.to(im1.dtype)) for k, v in taps.items()}
+            taps1 = {**taps, "stem1": taps["stem1"][:B],
+                     "stem2": taps["stem2"][:B]}
+            disps, inter = self.decoder(taps1)
+            x2b = inter["relu_x18"]
+            fmap1 = self.conv2(taps1["stem2"])
+            fmap2 = self.conv2(taps["stem2"][B:])
+            inp = F.relu(self.context(x2b))
+            net0 = torch.tanh(self.hidden(x2b))
+            f2_pyramid = build_pyramid(fmap2, cfg.corr_levels)
+            K2 = geometry.scale_intrinsics(K_full, 2)
 
-        # the Gauss-Newton uncertainty weights (`utils.py:291-298`), one
-        # call on the 2B stem features: the head's BN pools both images
-        if cfg.disable_fixed_pose_weight:
-            src_w = tgt_w = torch.ones_like(fmap1[:, :1])
-        else:
-            w2b = self.pose_update(taps["stem2"])
-            src_w, tgt_w = 1.0 / (1.0 + w2b[:B]), 1.0 / (1.0 + w2b[B:])
+            # the Gauss-Newton uncertainty weights (`utils.py:291-298`), one
+            # call on the 2B stem features: the head's BN pools both
+            # images
+            if cfg.disable_fixed_pose_weight:
+                src_w = tgt_w = torch.ones_like(fmap1[:, :1])
+            else:
+                w2b = self.pose_update(taps["stem2"])
+                src_w, tgt_w = 1.0 / (1.0 + w2b[:B]), 1.0 / (1.0 + w2b[B:])
 
-        pose0 = self._initial_pose(im1, im2, invert, side, sides)
-        disp_2_0 = disps[2]
-        depth0 = geometry.disp_to_depth(disp_2_0, cfg.min_depth,
-                                        cfg.max_depth)[1]
-        outputs = {"disp_2_0": disp_2_0,
-                   "disp_0_0": convex_upsample_disp(
-                       disp_2_0, self.update_block.upsample_mask(net0)),
-                   "disp_1_0": disps[1], "disp_3_0": disps[3]}
+            pose0 = self._initial_pose(im1, im2, invert, side, sides)
+            disp_2_0 = disps[2]
+            depth0 = geometry.disp_to_depth(disp_2_0, cfg.min_depth,
+                                            cfg.max_depth)[1]
+            outputs = {"disp_2_0": disp_2_0,
+                       "disp_0_0": convex_upsample_disp(
+                           disp_2_0, self.update_block.upsample_mask(net0)),
+                       "disp_1_0": disps[1], "disp_3_0": disps[3]}
 
         def deq_func(state: DEQState) -> DEQState:
+            profiling.count("deq_evaluations")
             c, max_dx, _ = self.reproject_2.depth2epipolarcoords(
                 state.pose, state.depth, K2)
             corr = epipolar_cost(fmap1, f2_pyramid, c, cfg.corr_levels,
@@ -297,9 +311,10 @@ class DEQDepthPose(nn.Module):
             upd = torch.zeros(B, 6, dtype=pose.dtype, device=pose.device)
             for _ in range(cfg.num_pose_iter):
                 c_p, P2 = self.reproject_2.depth2gradcoords(pose, new_depth, K2)
-                pose, upd = direct_align(pose, K2, c_p, P2, fmap1, fmap2,
-                                         src_w, tgt_w, weight,
-                                         robust_pose_loss=cfg.robust_pose_loss)
+                with profiling.span("mal.dualref.gauss_newton"):
+                    pose, upd = direct_align(
+                        pose, K2, c_p, P2, fmap1, fmap2, src_w, tgt_w, weight,
+                        robust_pose_loss=cfg.robust_pose_loss)
             return DEQState(net, new_depth, pose,
                             torch.linalg.vector_norm(upd, dim=-1))
 
@@ -326,7 +341,8 @@ class DEQDepthPose(nn.Module):
         states_t: list[DEQState] = []
         solve_state = _detach(state) if train else state
         anderson_res = None
-        with torch.no_grad() if train else contextlib.nullcontext():
+        with torch.no_grad() if train else contextlib.nullcontext(), \
+                profiling.span("mal.dualref.solve"):
             if cfg.deq_solver == "anderson":
                 anderson_res = anderson_solver_aux(
                     vec_f, flatten(solve_state.net, solve_state.depth),
@@ -355,9 +371,10 @@ class DEQDepthPose(nn.Module):
             torch.stack(poses_t), best[None, :, None, None], dim=0)[0]
 
         if train:
-            final_states, pose_star = self._phantom_taps(
-                cfg, deq_func, vec_f, flatten, unflatten, anderson_res,
-                states_t, num_iters, pose_star, state_star)
+            with profiling.span("mal.dualref.phantom"):
+                final_states, pose_star = self._phantom_taps(
+                    cfg, deq_func, vec_f, flatten, unflatten, anderson_res,
+                    states_t, num_iters, pose_star, state_star)
         else:
             final_states = [state_star]
         for k, st in enumerate(final_states, start=1):
@@ -387,8 +404,9 @@ class DEQDepthPose(nn.Module):
                                    + outputs["disp_0_0"] * (1 - m0))
 
         if image3 is not None:
-            outputs["pose_p1"] = self._initial_pose(
-                im1, imagenet_normalize(image3), False, side, sides)
+            with profiling.span("mal.dualref.trunk"):
+                outputs["pose_p1"] = self._initial_pose(
+                    im1, imagenet_normalize(image3), False, side, sides)
         return outputs, [pose0, pose_star]
 
     # ------------------------------------------------------------------
@@ -421,8 +439,10 @@ class DEQDepthPose(nn.Module):
                 if t - 2 <= 0 or trace.shape[0] == 0:
                     z_tap = anderson_res.result   # the mixing never ran
                 else:
+                    # indexing by a device scalar reads it on the host
                     z_tap = anderson_res.mixed_trajectory[
                         torch.argmin(trace[:t - 2])]
+                    profiling.count("host_syncs")
                 states_for_tap.append(DEQState(*unflatten(z_tap), pose_star,
                                                state_star.upd_norm))
             sel = list(range(len(states_for_tap)))

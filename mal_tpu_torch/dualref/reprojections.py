@@ -23,6 +23,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from mal_tpu_torch.utils import profiling
+
 Tensor = torch.Tensor
 
 
@@ -117,8 +119,10 @@ class Reprojections(nn.Module):
         B, _, h, w = depths.shape
         X1 = _transform(poses, _iproj(depths[:, :, None], intr))
         c1 = _proj(X1, intr).reshape(B, 2, 1, 1, h, w)
+        # a copy from a host list, which synchronises with the device
         p_delta = torch.tensor([[1.0, -1.0, 0.0, 0.0], [0.0, 0.0, 1.0, -1.0]],
                                dtype=c1.dtype, device=c1.device)
+        profiling.count("host_syncs")
         c1 = torch.cat([c1, c1 + p_delta.reshape(1, 2, 1, 4, 1, 1)], dim=3)
         return c1, X1[:, :3]
 

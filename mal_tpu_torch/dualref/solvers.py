@@ -19,6 +19,7 @@ from typing import Any, Callable, NamedTuple, Sequence
 import torch
 
 from mal_tpu_torch.parallel import mesh
+from mal_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -75,7 +76,9 @@ def _anderson_mix(X: list[Tensor], F: list[Tensor], lam: float,
     H = torch.einsum("ibd,jbd->bij", G, G) + lam * torch.eye(
         n, dtype=G.dtype, device=G.device)
     rhs = torch.ones(H.shape[0], n, 1, dtype=G.dtype, device=G.device)
+    # `solve` checks its factorisation on the host, which synchronises
     alpha = torch.linalg.solve(H, rhs)[..., 0]               # (B, n)
+    profiling.count("host_syncs")
     alpha = alpha / (alpha.sum(dim=1, keepdim=True) + 1e-12)
     return (beta * torch.einsum("bi,ibd->bd", alpha, Fs)
             + (1 - beta) * torch.einsum("bi,ibd->bd", alpha, Xs))
@@ -200,8 +203,11 @@ def anderson_solver_aux(f: Callable, z0: Tensor, aux0: Any, steps: int,
     abs_t, rel_t = torch.stack(abs_t), torch.stack(rel_t)
     mixed = torch.stack(xs_mix)
     trace = abs_t if stop_mode == "abs" else rel_t
-    return AuxSolverResult(mixed[torch.argmin(trace)], aux, _stack_aux(auxs),
-                           torch.stack(zs), rel_t, abs_t, mixed)
+    # indexing by a device scalar reads it on the host
+    best = mixed[torch.argmin(trace)]
+    profiling.count("host_syncs")
+    return AuxSolverResult(best, aux, _stack_aux(auxs), torch.stack(zs),
+                           rel_t, abs_t, mixed)
 
 
 class _AdjointGate(torch.autograd.Function):

@@ -26,8 +26,17 @@ compute_pose_update_losses), with the reference's default path and quirks:
 - the depth bins with the mean and median EMAs (`trainer.py:350-372`).
 
 The automask tie-break noise (standard normal, scaled by 1e-5 here) comes
-from `generator`, or is passed in `noise`, keyed "s{scale}_k{k}" and
-"pose", so that a test can feed both packages the same draws.
+from `generator`, or is passed in `noise`: either keyed "s{scale}_k{k}" and
+"pose", a draw for each automask, so that a test can feed both packages
+the same draws, or one (B, 1, H, W) tensor that every automask of the
+step uses, the one draw `train/step.py` takes for ManyDepth's automasks.
+That one draw departs from the reference, which draws anew at each call;
+the draw only breaks ties between the warped and the identity losses, at
+1e-5 of the loss.
+
+Spans (`utils/profiling.py`): `mal.step` around the step, and inside it
+the model's (`mal.dualref.*`, `dualref/model.py`), `mal.losses`,
+`mal.backward` and `mal.optimizer`.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ from mal_tpu_torch.parallel import mesh
 from mal_tpu_torch.train.lr_schedule import make_schedule
 from mal_tpu_torch.train.state import TrainState, apply_gradients
 from mal_tpu_torch.train.step import check_supported, data_parallel
+from mal_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -74,18 +84,25 @@ def make_dualref_loss_fn(cfg: Config, model) -> Callable:
     reference's per-batch training loss; running it updates the BN
     statistics, as a training forward does. `batch` is the port's NHWC
     batch; `noise` maps `noise_keys(cfg)` to (B, 1, H, W) standard-normal
-    draws."""
+    draws, or is one such draw that every automask uses."""
     check_supported(cfg)
     use_p1 = len(cfg.frame_ids) > 2 and cfg.frame_ids[2] == 1
     n_losses = cfg.deq_n_losses
 
-    def loss_fn(batch: dict, noise: dict | None = None,
+    def loss_fn(batch: dict, noise: dict | Tensor | None = None,
                 generator: torch.Generator | None = None):
         b = to_nchw(batch)
-        aug, color = b["color_aug"], b["color"]
+        aug = b["color_aug"]
         out, (pose0, pose_star) = model(
             aug["0"], aug["-1"], b["K"], invert=True, train=True,
             image3=aug["1"] if use_p1 else None)
+        with profiling.span("mal.losses"):
+            return losses_of(b, out, pose0, pose_star, noise, generator)
+
+    def losses_of(b: dict, out: dict, pose0: Tensor, pose_star: Tensor,
+                  noise: dict | Tensor | None,
+                  generator: torch.Generator | None):
+        color = b["color"]
         pose_p1 = out.get("pose_p1")
         color0, colorm1 = color["0"], color["-1"]
         colorp1 = color["1"] if use_p1 else None
@@ -93,6 +110,8 @@ def make_dualref_loss_fn(cfg: Config, model) -> Callable:
         K, inv_K = b["K"], b["inv_K"]
 
         def draw(key: str) -> Tensor:
+            if isinstance(noise, Tensor):
+                return noise
             if noise is not None:
                 return noise[key]
             return torch.randn((B, 1, H, W), generator=generator,
@@ -192,6 +211,19 @@ def make_dualref_loss_fn(cfg: Config, model) -> Callable:
     return loss_fn
 
 
+def fill_missing_grads(optimizer: torch.optim.Optimizer) -> None:
+    """A zero gradient for each of the optimizer's parameters that the loss
+    does not reach (the pose nets of the other two camera sides, the
+    decoder's scale-0 and scale-1 heads, `reproject_2.delta_p`), as
+    `mal_tpu`'s optax update gives every leaf one: Adam then holds a state
+    for every parameter, and moves none of these (its update of a zero
+    gradient is 0)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+
+
 def make_dualref_train_step(cfg: Config,
                             device: str | torch.device | None = None
                             ) -> Callable:
@@ -199,8 +231,10 @@ def make_dualref_train_step(cfg: Config,
     (state, metrics)` on `device` (default: the GPU, raising if there is
     none): the loss, its backward, the optimizer's update at the schedule's
     rate (the optimizer in `state`, so the Trainer's frozen one takes
-    effect), and the depth bins with the mean and median EMAs. `draws` may
-    hold "automask_noise", the `noise` of `make_dualref_loss_fn`."""
+    effect; `fill_missing_grads` first), and the depth bins with the mean
+    and median EMAs. `draws` may hold "automask_noise", the `noise` of
+    `make_dualref_loss_fn`: the dict of draws or the one (B, 1, H, W)
+    draw."""
     device = resolve_device(device)
     schedule = make_schedule(cfg)
 
@@ -213,17 +247,22 @@ def make_dualref_train_step(cfg: Config,
             raise ValueError(f"batch is on {batch['K'].device}, the step "
                              f"runs on {device}")
         model = state.model
-        model.zero_grad(set_to_none=True)
-        total, aux = make_dualref_loss_fn(cfg, model)(
-            batch, noise=(draws or {}).get("automask_noise"),
-            generator=generator)
-        total.backward()
-        mesh.all_reduce_grads(model.parameters())
-        apply_gradients(state.optimizer, schedule(state.step),
-                        cfg.grad_clip_norm)
-        if cfg.adaptive_bins:
-            state.bins = state.bins.update(aux["depth0"], cfg.min_depth,
-                                           cfg.depth_bin_ema, track_stats=True)
+        with profiling.span(profiling.STEP):
+            model.zero_grad(set_to_none=True)
+            total, aux = make_dualref_loss_fn(cfg, model)(
+                batch, noise=(draws or {}).get("automask_noise"),
+                generator=generator)
+            with profiling.span("mal.backward"):
+                total.backward()
+            with profiling.span("mal.optimizer"):
+                mesh.all_reduce_grads(model.parameters())
+                fill_missing_grads(state.optimizer)
+                apply_gradients(state.optimizer, schedule(state.step),
+                                cfg.grad_clip_norm)
+                if cfg.adaptive_bins:
+                    state.bins = state.bins.update(
+                        aux["depth0"], cfg.min_depth, cfg.depth_bin_ema,
+                        track_stats=True)
         state.step += 1
         metrics = mesh.sum_metrics(aux["metrics"])
         metrics["min_depth_bin"] = state.bins.min_depth

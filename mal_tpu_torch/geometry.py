@@ -160,7 +160,9 @@ def project_3d_center(points: Tensor, K: Tensor, T: Tensor, height: int,
     cam_points = P @ points
     pix = cam_points[:, :2, :] / _safe_denom(cam_points[:, 2:3, :] + eps)
     pix = pix.reshape(-1, 2, height, width).permute(0, 2, 3, 1)
+    # a copy from a host list, which synchronises with the device
     scale = torch.tensor([width, height], dtype=pix.dtype, device=pix.device)
+    profiling.count("host_syncs")
     grid = 2.0 * (pix + 0.5) / scale - 1.0
     return grid.clamp(-10.0, 10.0)
 
@@ -191,6 +193,8 @@ def se3_exp(xi: Tensor) -> Tensor:
     V = torch.where(small, eye, V)
     t = (V @ v[..., None])[..., 0]
     top = torch.cat([R, t[..., None]], dim=-1)
+    # a copy from a host list, which synchronises with the device
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=xi.dtype,
                           device=xi.device).expand(xi.shape[:-1] + (1, 4))
+    profiling.count("host_syncs")
     return torch.cat([top, bottom], dim=-2)

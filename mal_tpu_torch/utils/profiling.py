@@ -85,15 +85,20 @@ class _Recorder:
 
 
 class _Span:
-    __slots__ = ("recorder", "name", "index")
+    __slots__ = ("recorder", "name", "index", "range")
 
-    def __init__(self, recorder: _Recorder, name: str):
+    def __init__(self, recorder: _Recorder, name: str, profiled: bool):
         self.recorder, self.name = recorder, name
+        self.range = torch.profiler.record_function(name) if profiled else None
 
     def __enter__(self):
         self.index = self.recorder.open(self.name)
+        if self.range is not None:
+            self.range.__enter__()
 
     def __exit__(self, *exc) -> None:
+        if self.range is not None:
+            self.range.__exit__(*exc)
         self.recorder.close(self.index)
 
 
@@ -103,11 +108,14 @@ _NO_SPAN = contextlib.nullcontext()
 
 def span(name: str):
     """A context manager that records the block as the span `name` while
-    `recording()` is on; off, the one shared no-op, with no clock read
-    and nothing allocated."""
+    `recording()` is on, and while a `torch.profiler` is on also opens a
+    `record_function` range of that name, so that the span shows in the
+    profiler's trace; both off, the one shared no-op, with one flag read,
+    no clock read and nothing allocated."""
+    profiled = torch.autograd._profiler_enabled()
     if _recorder is None:
-        return _NO_SPAN
-    return _Span(_recorder, name)
+        return torch.profiler.record_function(name) if profiled else _NO_SPAN
+    return _Span(_recorder, name, profiled)
 
 
 def count(name: str, n: int = 1) -> None:

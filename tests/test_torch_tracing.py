@@ -259,7 +259,8 @@ def test_a_step_without_the_hint_records_no_segmenter_and_its_syncs():
 
 def test_trace_lays_the_spans_on_the_trace_clock(tmp_path):
     """A span and a `record_function` probe opened inside it line up on the
-    Chrome trace's clock within 1 ms."""
+    Chrome trace's clock within 1 ms. The span shows twice: on its own
+    track, and as the profiler's own range of its name."""
     with torch.profiler.record_function("warm"):
         pass
     with profiling.trace(str(tmp_path)):
@@ -268,7 +269,11 @@ def test_trace_lays_the_spans_on_the_trace_clock(tmp_path):
                 torch.ones(64, 64) @ torch.ones(64, 64)
     with open(tmp_path / "trace.json") as f:
         events = json.load(f)["traceEvents"]
-    (outer,) = [e for e in events if e.get("name") == "outer"]
+    (outer,) = [e for e in events
+                if e.get("name") == "outer" and e.get("cat") == "span"]
+    (outer_range,) = [e for e in events
+                      if e.get("name") == "outer" and e.get("cat") != "span"]
+    assert outer_range["ph"] == "X"
     (probe,) = [e for e in events if e.get("name") == "probe"]
     assert outer["ph"] == "X" and outer["cat"] == "span"
     assert outer["tid"] == profiling.SPAN_TRACK
