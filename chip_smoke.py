@@ -31,7 +31,11 @@ Phases, each of which must pass or the script exits non-zero:
    heads of 32, levels 6x20 / 12x40 / 24x80, 4 points; also x 18 launches
    a step) and K5b (`deform_sample_fused`, the same work sample-major, on
    its staged and its gather route); the registers and spills of K4's and
-   K5b's kernels;
+   K5b's kernels; DualRefine's Gauss-Newton reduction (`normal_equations`,
+   batch 12, 64 channels, 48x160): H, b and the four inputs' gradients
+   against float64, two launches to the bit, H and b to the plain
+   version's float32 bits, forward and backward times
+   beside the plain version's;
 4. small-input references, GPU against CPU (the plain PyTorch path): one
    training step and one `eval_forward` at 64x96; one temporal step at
    64x96 with a Swin-T Mask2Former; the same temporal step in fast mode;
@@ -78,8 +82,9 @@ Phases, each of which must pass or the script exits non-zero:
    `--profile` the idle share and the top device operations, also in
    `chiprun_out/profile_dualref_step.txt` and `..._fast_step.txt`), then in
    fp32 one step with the optimizer of `freeze_teacher_epoch`, which must
-   move `conv2 / context / hidden / update_block` and nothing else. No
-   kernel is on this path: every count must stay 0.
+   move `conv2 / context / hidden / update_block` and nothing else. One
+   kernel is on this path, the Gauss-Newton reduction (8 forwards and 1
+   backward a step); every other count must stay 0.
 8c. DynamicDepth with the online dynamic-object masks: phase 8's
    configuration with `online_doj=True, ins_threshold=0.0` and a seeded
    Swin-L Mask2Former making the masks of the three frames in each step,
@@ -128,7 +133,8 @@ Phases, each of which must pass or the script exits non-zero:
    `eval --doj_root` on mask files, and DualRefine: `train --set
    method='dualrefine'` (2 steps, one validation, the end-of-epoch
    checkpoint), `eval` of it in fp32, `export-pth` to `depth_pose.pth` and
-   `eval` of that directory (abs_rel within 1e-6), every kernel at 0;
+   `eval` of that directory (abs_rel within 1e-6), every kernel but the
+   Gauss-Newton reduction (not counted here) at 0;
    DynamicDepth `train --seg_pkl --set online_doj=True` (2 steps, fast
    mode: K2 = K3 = 72 and K5 = 18 a step); and `train` at the recipe, 3
    steps, through a one-process NCCL group (`--coordinator 127.0.0.1:port
@@ -242,7 +248,8 @@ FAST_LOSS_RTOL = 2e-2
 # gate against a broken path, not a measure of the mode
 FAST_VS_FP32_MAX_BIT_FLIPS = 0.25
 PEAK_BF16_FLOPS = 989e12   # H100 SXM tensor cores, dense
-SOURCES = ["plane_sweep", "window_attention", "deform_sample", "swin_block"]
+SOURCES = ["plane_sweep", "window_attention", "deform_sample", "swin_block",
+           "gauss_newton"]
 # DynamicDepth's benchmark configuration (`benchmarks/bench_methods.py:59-61`)
 DYNAMIC = dict(height=192, width=512, batch_size=14, method="dynamicdepth",
                cv_min=True, cv_set_1=True, cv_pool_th=0.15)
@@ -812,6 +819,112 @@ def k5_phase() -> dict:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None}
+
+# DualRefine's Gauss-Newton reduction against its plain version in float64,
+# as a share of the largest entry: the kernel's fp32 sums
+GN_REL_ATOL = 1e-5
+# Gauss-Newton forwards and backwards of a DualRefine step at the defaults:
+# the solve's 6 evaluations, the phantom unroll's and its recompute
+GN_FORWARDS, GN_BACKWARDS = 8, 1
+
+
+def gauss_newton_phase() -> dict:
+    """DualRefine's Gauss-Newton normal equations at its cell's shape
+    (batch 12, 64 channels, 48x160): H, b and the gradients of the four
+    inputs against the plain version in float64, two launches to the bit,
+    H and b to the plain version's float32 bits, then the device times of the kernel's forward and backward beside the
+    plain version's and the bytes bound."""
+    import torch
+
+    from mal_tpu_torch.ops.cuda import gauss_newton as gn
+
+    B, C, h, w = 12, 64, 48, 160
+    N = h * w
+    g = torch.Generator(device="cuda").manual_seed(11)
+    u = lambda *s: torch.rand(s, generator=g, device="cuda",
+                              dtype=torch.float64)
+    X, Y, Z = 20 * u(B, N) - 10, 20 * u(B, N) - 10, 2 + 18 * u(B, N)
+    fx, fy = 0.58 * w, 1.92 * h     # KITTI's intrinsics at the map's scale
+    Jp = torch.stack([
+        torch.stack([fx / Z, 0 * Z, -fx * X / Z ** 2, -fx * X * Y / Z ** 2,
+                     fx + fx * X * X / Z ** 2, -fx * Y / Z], -1),
+        torch.stack([0 * Z, fy / Z, -fy * Y / Z ** 2, -fy - fy * Y * Y / Z ** 2,
+                     fy * X * Y / Z ** 2, fy * X / Z], -1)], 2)
+    args64 = [u(B, C, 5, N), u(B, C, N), Jp, u(B, N)]
+    dH64, db64 = u(B, 6, 6) - 0.5, u(B, 6) - 0.5
+    leaves64 = [a.clone().requires_grad_(True) for a in args64]
+    H64, b64 = gn.normal_equations_reference(*leaves64)
+    want = (H64, b64, *torch.autograd.grad(
+        (H64 * dH64).sum() + (b64 * db64).sum(), leaves64))
+    leaves = [a.float().requires_grad_(True) for a in args64]
+    dH, db = dH64.float(), db64.float()
+
+    def kernel():
+        H, b = gn.normal_equations(*leaves)
+        return (H, b, *torch.autograd.grad((H * dH).sum() + (b * db).sum(),
+                                           leaves))
+
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    errs = {name: ((x.double() - t).abs().max() / t.abs().max()).item()
+            for name, x, t in zip(("H", "b", "df", "dsrc", "dJp", "dw"),
+                                  got, want)}
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    with torch.no_grad():
+        plain = gn.normal_equations_reference(*(a.detach() for a in leaves))
+    as_plain = all(torch.equal(x, y) for x, y in zip(got[:2], plain))
+    print(f"Gauss-Newton normal equations at B={B} C={C} {h}x{w}: error "
+          f"against float64 as a share of the largest entry "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (at most "
+          f"{GN_REL_ATOL}); two launches {'equal' if same else 'DIFFER'}; "
+          f"H and b {'equal' if as_plain else 'NOT equal'} to the plain "
+          f"version's float32 bits")
+    for line in ptxas_usage("gauss_newton", "normal_equations"):
+        print(f"  {line}")
+    check(all(v <= GN_REL_ATOL for v in errs.values()),
+          f"Gauss-Newton kernel disagrees with its plain version: {errs}")
+    check(same, "two Gauss-Newton launches differ")
+    check(as_plain, "Gauss-Newton H and b differ from the plain version's "
+          "bits at the cell's shape")
+
+    args = [a.detach() for a in leaves]
+
+    def plain_both():
+        H, b = gn.normal_equations_reference(*leaves)
+        torch.autograd.grad((H * dH).sum() + (b * db).sum(), leaves)
+
+    # device ms a call by torch.profiler: the caller's time of one call is
+    # the host's (ctypes, autograd), which the step overlaps
+    parts = dict(_sub_kernel_ms(kernel, 10))
+    _print_breakdown("Gauss-Newton forward + backward", list(parts.items()))
+    ms = sum(v for k, v in parts.items() if "normal_equations_" in k
+             and "normal_equations_bwd" not in k)
+    bwd_ms = sum(v for k, v in parts.items() if "normal_equations_bwd" in k)
+    with torch.no_grad():
+        plain_ms = sum(v for _, v in _sub_kernel_ms(
+            lambda: gn.normal_equations_reference(*args), 3))
+    plain_both_ms = sum(v for _, v in _sub_kernel_ms(plain_both, 3))
+    # least bytes: the inputs read once, H and b (forward) or the inputs'
+    # gradients (backward) written once; operations a (pixel, channel): g,
+    # r and j ~31, the 27 weighted products ~60 (forward); S j, j . db and
+    # dj ~100, dg, dJp and dw ~60 more (backward)
+    inputs = 4 * sum(a.numel() for a in args)
+    fwd = _bound(inputs + 4 * B * 42, 91 * B * C * N, PEAK_FP32_FLOPS)
+    bwd = _bound(2 * inputs + 4 * B * 42, 191 * B * C * N, PEAK_FP32_FLOPS)
+    print(f"Gauss-Newton device ms: forward {ms:.4f} ({fwd['text']}), plain "
+          f"{plain_ms:.4f}; backward {bwd_ms:.4f} ({bwd['text']}), plain "
+          f"forward + backward {plain_both_ms:.4f}")
+    print(f"Gauss-Newton per DualRefine step ({GN_FORWARDS} forwards, "
+          f"{GN_BACKWARDS} backward): {GN_FORWARDS * ms + GN_BACKWARDS * bwd_ms:.4f}"
+          f" ms; plain {(GN_FORWARDS - 1) * plain_ms + plain_both_ms:.4f} ms")
+    return {"name": "normal_equations", "route": "cuda",
+            "source": "mal_tpu_torch/csrc/gauss_newton.cu",
+            "replaces": None, "max_rel_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "backward_ms": bwd_ms,
+            "plain_backward_ms": plain_both_ms - plain_ms,
+            "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+            "backward_bound_ms": bwd["bound_ms"], "library_ms": None}
+
 
 # Swin-L at 192x640 with window 12: stage -> (padded map, real map, C, heads,
 # whether odd blocks shift). `segment/swin.py`'s rule: a map pads to window
@@ -1700,15 +1813,16 @@ def dualref_path_phase(steps: int, profile: bool, fast: bool,
     frames 0 / -1 / +1, HRNet-W18, Anderson with 6 evaluations), in exact
     fp32 or with `fast` in fast mode: `steps` steps on a seeded synthetic
     batch and one eval forward, with every kernel's count set to 0 just
-    before and read just after (no kernel is on this path: 0 each). In
-    fp32 one more step then runs with the frozen optimizer of
-    `freeze_teacher_epoch`, which must move the refinement student and
-    nothing else."""
+    before and read just after (0 each), but the Gauss-Newton kernel's:
+    8 forwards and 1 backward a step. In fp32 one more step then runs with
+    the frozen optimizer of `freeze_teacher_epoch`, which must move the
+    refinement student and nothing else."""
     import torch
 
     from mal_tpu_torch.config import TRAIN_FAST_SETTINGS, Config
     from mal_tpu_torch.data.synthetic import synthetic_batch
     from mal_tpu_torch.models.mal_model import to_nchw
+    from mal_tpu_torch.ops.cuda.gauss_newton import normal_equations as gn
     from mal_tpu_torch.train.state import create_train_state, make_optimizer
     from mal_tpu_torch.train.step import make_train_step
     from mal_tpu_torch.utils.profiling import idle_share
@@ -1735,6 +1849,7 @@ def dualref_path_phase(steps: int, profile: bool, fast: bool,
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
         fn.launches = 0
+    gn.launches = gn.backward_launches = 0
     times = []
     for i in range(steps):
         t0 = time.perf_counter()
@@ -1745,6 +1860,9 @@ def dualref_path_phase(steps: int, profile: bool, fast: bool,
         print(f"step {i}: loss {m['loss']!r} pose_loss {m['pose_loss']!r} "
               f"consistency {m['consistency_loss']!r} ({times[-1]:.2f} ms)")
         check(_finite(m), f"non-finite metrics at step {i}: {m}")
+    gn_steps = (gn.launches, gn.backward_launches)
+    check(gn_steps == (GN_FORWARDS * steps, GN_BACKWARDS * steps),
+          f"Gauss-Newton kernel launches {gn_steps} in {steps} steps")
     t0 = time.perf_counter()
     with torch.no_grad():
         out, poses = state.model(color["0"], color["-1"], batch["K"],
@@ -1752,6 +1870,7 @@ def dualref_path_phase(steps: int, profile: bool, fast: bool,
     torch.cuda.synchronize()
     eval_ms = (time.perf_counter() - t0) * 1e3
     launches = {fn.__name__: fn.launches for fn in counters}
+    launches[gn.__name__] = gn.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     B, H, W = cfg.batch_size, cfg.height, cfg.width
@@ -1769,6 +1888,9 @@ def dualref_path_phase(steps: int, profile: bool, fast: bool,
           f"median of the rest {steady:.2f}; {B * 1e3 / steady:.2f} frames/s)"
           f"; peak memory {peak:.2f} GiB; launches {launches} "
           f"({card_line()})")
+    print(f"Gauss-Newton kernel: {gn_steps[0]} forwards and {gn_steps[1]} "
+          f"backwards in {steps} steps, {gn.launches - gn_steps[0]} in the "
+          f"eval forward")
     for fn in counters:
         check(launches[fn.__name__] == 0, f"{fn.__name__} launched "
               f"{launches[fn.__name__]} times on the DualRefine path")
@@ -1796,9 +1918,14 @@ def dualref_path_phase(steps: int, profile: bool, fast: bool,
                   for n, p in state.model.named_parameters()}
         for fn in counters:
             fn.launches = 0
+        gn.launches = gn.backward_launches = 0
         state, m = step(state, batch, 0.0, gen)
         check(_finite({k: v.item() for k, v in m.items()}),
               "non-finite metrics in the frozen step")
+        check((gn.launches, gn.backward_launches)
+              == (GN_FORWARDS, GN_BACKWARDS),
+              f"Gauss-Newton kernel launches {gn.launches} / "
+              f"{gn.backward_launches} in the frozen step")
         by_path["dualref_frozen"] = {fn.__name__: fn.launches
                                      for fn in counters}
         moved = {n.split(".")[0] for n, p in state.model.named_parameters()
@@ -3214,7 +3341,7 @@ def main(argv=None) -> int:
 
     kernels = [k1_phase(), k6_phase(), k2_phase(args.profile),
                k3_phase(args.profile), k4_phase(),
-               k5_phase(), k5b_phase()]
+               k5_phase(), k5b_phase(), gauss_newton_phase()]
     if args.kernels_only:
         print(json.dumps({"kernels": kernels}))
         return 0

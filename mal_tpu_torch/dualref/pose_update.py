@@ -5,7 +5,10 @@ Counterpart of `mal_tpu.dualref.pose_update`; reference `PoseUpdate`,
 uncertainty weights 1 / (1 + w), the 6-DoF pixel Jacobian, the image
 gradient from +-1 pixel samples, the weighted normal equations H = Jᵀ W J,
 a Cholesky solve with a generic-solve fallback, and an SE(3) exponential
-composed onto the pose.
+composed onto the pose. H and b come from `ops/cuda/gauss_newton.py:
+normal_equations`: on a card one CUDA reduction (and its backward) over
+the sampled features, which never writes the (B, N, C, 6) Jacobian; on the
+CPU its plain version.
 
 The reference catches a failed Cholesky with try / except. Here, as in
 `mal_tpu`, the choice is made per sample without raising: a matrix that is
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from mal_tpu_torch import geometry
+from mal_tpu_torch.ops.cuda.gauss_newton import normal_equations
 from mal_tpu_torch.ops.interp import grid_sample
 
 Tensor = torch.Tensor
@@ -27,8 +31,8 @@ Tensor = torch.Tensor
 def sample_tgt(tgt_feat: Tensor, tgt_w: Tensor, p2: Tensor):
     """Target features at the projected coordinates and their +-1 pixel
     neighbours. tgt_feat (B, C, h, w); tgt_w (B, 1, h, w); p2 (B, 2, 1, 5,
-    h, w). Returns (warped (B, C, h, w), grads (B, C, 2, h, w), warped
-    weights (B, 1, h, w))."""
+    h, w). Returns (samples (B, C, 5, h, w): the warped features, then x + 1,
+    x - 1, y + 1, y - 1; warped weights (B, 1, h, w))."""
     B, _, _, D, h, w = p2.shape
     c = p2[:, :, 0]                                         # (B, 2, 5, h, w)
     gx = 2.0 * (c[:, 0] + 0.5) / w - 1.0
@@ -36,11 +40,8 @@ def sample_tgt(tgt_feat: Tensor, tgt_w: Tensor, p2: Tensor):
     grid = torch.stack([gx, gy], dim=-1)                    # (B, 5, h, w, 2)
     f = grid_sample(tgt_feat, grid.reshape(B, D * h, w, 2), "zeros",
                     align_corners=False)
-    f = f.reshape(B, -1, D, h, w)
-    grads = torch.stack([(f[:, :, 1] - f[:, :, 2]) / 2.0,
-                         (f[:, :, 3] - f[:, :, 4]) / 2.0], dim=2)
     w_warp = grid_sample(tgt_w, grid[:, 0], "zeros", align_corners=False)
-    return f[:, :, 0], grads, w_warp
+    return f.reshape(B, -1, D, h, w), w_warp
 
 
 def barron_weight(cost: Tensor, c: float = 0.1) -> Tensor:
@@ -79,7 +80,7 @@ def direct_align(poses: Tensor, K: Tensor, p2: Tensor, P2: Tensor,
     Returns (new poses, update (B, 6))."""
     B, C, h, w = src_feat.shape
     N = h * w
-    warped, grads, warped_w = sample_tgt(tgt_feat, tgt_w, p2)
+    f, warped_w = sample_tgt(tgt_feat, tgt_w, p2)
 
     X, Y, Z = P2[:, 0], P2[:, 1], P2[:, 2]                  # (B, N)
     fx = K[:, 0, 0].reshape(-1, 1)
@@ -95,10 +96,6 @@ def direct_align(poses: Tensor, K: Tensor, p2: Tensor, P2: Tensor,
                            fy_YZ2 * X, fy_Zi * X], dim=-1)
     J_pixel_xi = torch.stack([J_row_x, J_row_y], dim=2)     # (B, N, 2, 6)
 
-    J_img_pixel = grads.reshape(B, C, 2, N).permute(0, 3, 1, 2)   # (B, N, C, 2)
-    J = -(J_img_pixel @ J_pixel_xi)                         # (B, N, C, 6)
-    res = (src_feat - warped).reshape(B, C, N).transpose(1, 2)    # (B, N, C)
-
     wmap = src_w * warped_w
     if weight is not None:
         wmap = wmap * weight
@@ -106,12 +103,12 @@ def direct_align(poses: Tensor, K: Tensor, p2: Tensor, P2: Tensor,
         # `--robust_pose_loss` (`utils/utils.py:344-355`): the Barron IRLS
         # weight of the squared channel-summed residual, on in-image
         # centre samples only
+        res = (src_feat - f[:, :, 0]).reshape(B, C, N).transpose(1, 2)
         cost = (res ** 2).sum(dim=-1).reshape(B, 1, h, w)
         valid = _mask_in_image(p2[:, :, 0, 0], w, h)[:, None]
         wmap = wmap * barron_weight(cost) * valid
-    JW = J * wmap.reshape(B, N, 1, 1)
-    H = torch.einsum("bnck,bncl->bkl", JW, J)               # (B, 6, 6)
-    b = -torch.einsum("bnck,bnc->bk", JW, res)              # (B, 6)
+    H, b = normal_equations(f.reshape(B, C, 5, N), src_feat.reshape(B, C, N),
+                            J_pixel_xi, wmap.reshape(B, N))
 
     L, ok = _safe_cholesky(H)
     upd_chol = torch.cholesky_solve(b[..., None], L)[..., 0]

@@ -4,7 +4,8 @@ automask draw a step against the dict of draws, a step of
 `make_train_step` on the harness's batch and draws, the model's spans and
 counters, and a span in a `torch.profiler` trace. Marked `gpu` (skipped
 where no CUDA device is present): the sync counter against the
-synchronising operations that `torch.cuda.set_sync_debug_mode` reports.
+synchronising operations that `torch.cuda.set_sync_debug_mode` reports,
+and the Gauss-Newton kernel's launches.
 On a machine with a card:
 
     python -m pytest --noconftest tests/test_torch_dualref_bench_draws.py -q -s
@@ -211,3 +212,8 @@ def test_sync_counter_equals_the_synchronising_operations():
     assert records.counts["deq_evaluations"] == DEQ_EVALUATIONS
     assert (len(syncs) == records.counts["host_syncs"]
             == expected_syncs(CFG))
+    # every Gauss-Newton step through the kernel, the recompute's backward
+    # through its backward kernel, and neither synchronises
+    assert (records.counts["gauss_newton_kernel"]
+            == DEQ_EVALUATIONS * CFG.num_pose_iter)
+    assert records.counts["gauss_newton_kernel_bwd"] == 1

@@ -14,9 +14,11 @@ import torch
 from mal_tpu_torch.ops.cost_volume import compute_depth_bins, plane_sweep_terms
 from mal_tpu_torch.ops.cuda import cost_volume_kernel as tk
 from mal_tpu_torch.ops.cuda import deform_sample as k5
+from mal_tpu_torch.ops.cuda import gauss_newton as gn
 from mal_tpu_torch.ops.cuda import swin_block as k23
 from mal_tpu_torch.ops.cuda import window_attention as k4
 from mal_tpu_torch.segment.swin import shift_mask
+from mal_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -618,3 +620,142 @@ def test_wrapper_refuses_a_gradient_on_the_card(cuda, name):
     from test_torch_grad_guard import check_guard
 
     check_guard(name, cuda)
+
+
+def _gn_inputs(B, C, h, w, weights="uniform", seed=0):
+    """(f, src_feat, J_pixel_xi, wmap) of DualRefine's Gauss-Newton step,
+    float64 on the CPU, with the main path's magnitudes (features in
+    [0, 1], fx ~ fy ~ 92, points 2-20 m deep). `weights`: "uniform" in
+    [0, 1]; "zeros": a third of the pixels 0 and the last element all 0;
+    "robust": the uniform weights times the Barron weight of the squared
+    residual and a border mask, as `direct_align` composes them."""
+    from mal_tpu_torch.dualref.pose_update import barron_weight
+
+    rng = np.random.RandomState(seed)
+    N = h * w
+    f = rng.uniform(0, 1, (B, C, 5, N))
+    src = rng.uniform(0, 1, (B, C, N))
+    X, Y = rng.uniform(-10, 10, (2, B, N))
+    Z = rng.uniform(2, 20, (B, N))
+    fx, fy = 92.8, 92.2
+    jx = np.stack([fx / Z, 0 * Z, -fx * X / Z ** 2, -fx * X * Y / Z ** 2,
+                   fx + fx * X * X / Z ** 2, -fx * Y / Z], -1)
+    jy = np.stack([0 * Z, fy / Z, -fy * Y / Z ** 2, -fy - fy * Y * Y / Z ** 2,
+                   fy * X * Y / Z ** 2, fy * X / Z], -1)
+    wmap = rng.uniform(0, 1, (B, N))
+    if weights == "zeros":
+        wmap[:, ::3] = 0.0
+        wmap[-1] = 0.0
+    elif weights == "robust":
+        cost = ((src - f[:, :, 0]) ** 2).sum(1)
+        border = np.zeros((h, w))
+        border[2:h - 2, 2:w - 2] = 1.0
+        wmap = (wmap * barron_weight(torch.tensor(cost)).numpy()
+                * border.reshape(1, N))
+    return [torch.tensor(a) for a in (f, src, np.stack([jx, jy], 2), wmap)]
+
+
+def _rel_err(x, truth):
+    """max |x - truth| as a share of truth's largest entry; where truth is
+    all 0, max |x| (0 only where x is 0 too)."""
+    scale = truth.abs().max()
+    err = (x.double() - truth).abs().max()
+    return float(err / scale if scale > 0 else err)
+
+
+# DualRefine's KITTI shape (batch 12, 64 channels, 48 x 160), and a ragged
+# one: one element, K = 5 x 273 elements no multiple of the 64 lanes
+GN_CELL = (12, 64, 48, 160)
+
+
+@pytest.mark.parametrize("weights", ["uniform", "zeros", "robust"])
+@pytest.mark.parametrize("shape", [GN_CELL, (1, 5, 13, 21)])
+def test_gauss_newton_matches_plain_version(cuda, shape, weights):
+    """H and b against the plain version in float64 on the card, no
+    farther than the plain version in float32 (cuBLAS's order) by more
+    than float32's rounding; at the cell's shape the plain version's
+    float32 bits; an all-zero weight gives 0."""
+    args64 = [a.to(cuda) for a in _gn_inputs(*shape, weights=weights)]
+    args = [a.float() for a in args64]
+    before = gn.normal_equations.launches
+    with profiling.recording() as records:
+        H, b = gn.normal_equations(*args)
+    assert gn.normal_equations.launches == before + 1
+    assert records.counts == {"gauss_newton_kernel": 1}
+    H64, b64 = gn.normal_equations_reference(*args64)
+    H32, b32 = gn.normal_equations_reference(*args)
+    torch.cuda.synchronize()
+    if shape == GN_CELL:
+        assert torch.equal(H, H32) and torch.equal(b, b32)
+    for name, got, plain, truth in (("H", H, H32, H64), ("b", b, b32, b64)):
+        err, plain_err = _rel_err(got, truth), _rel_err(plain, truth)
+        print(f"{name}: kernel {err:.3g}, plain fp32 {plain_err:.3g}")
+        assert err <= 2 * plain_err + 2e-7, name
+    if weights == "zeros":
+        assert not H[-1].any() and not b[-1].any()
+
+
+@pytest.mark.parametrize("weights", ["uniform", "zeros"])
+@pytest.mark.parametrize("shape", [GN_CELL, (1, 5, 13, 21)])
+def test_gauss_newton_backward_matches_autograd(cuda, shape, weights):
+    """The gradients of f, src_feat, J_pixel_xi and wmap from the backward
+    kernel against autograd through the plain version in float64, for a
+    non-symmetric dH; one backward launch."""
+    args64 = [a.to(cuda) for a in _gn_inputs(*shape, weights=weights,
+                                              seed=1)]
+    rng = np.random.RandomState(2)
+    dH64 = torch.tensor(rng.randn(shape[0], 6, 6), device=cuda)
+    db64 = torch.tensor(rng.randn(shape[0], 6), device=cuda)
+    leaves64 = [a.clone().requires_grad_(True) for a in args64]
+    H, b = gn.normal_equations_reference(*leaves64)
+    want = torch.autograd.grad((H * dH64).sum() + (b * db64).sum(), leaves64)
+    leaves = [a.float().requires_grad_(True) for a in args64]
+    before = gn.normal_equations.backward_launches
+    with profiling.recording() as records:
+        H, b = gn.normal_equations(*leaves)
+        got = torch.autograd.grad(
+            (H * dH64.float()).sum() + (b * db64.float()).sum(), leaves)
+    assert gn.normal_equations.backward_launches == before + 1
+    assert records.counts == {"gauss_newton_kernel": 1,
+                              "gauss_newton_kernel_bwd": 1}
+    for name, g, truth in zip(("f", "src_feat", "J_pixel_xi", "wmap"), got,
+                              want):
+        assert g.dtype is torch.float32 and g.shape == truth.shape, name
+        err = _rel_err(g, truth)
+        print(f"d{name}: {err:.3g}")
+        assert err <= 1e-5, name
+
+
+def test_gauss_newton_two_launches_give_the_same_bits(cuda):
+    args = [a.float().to(cuda).requires_grad_(True)
+            for a in _gn_inputs(*GN_CELL, seed=3)]
+    outs = []
+    for _ in range(2):
+        H, b = gn.normal_equations(*args)
+        grads = torch.autograd.grad(H.sum() + 3 * b.sum(), args)
+        outs.append((H, b, *grads))
+    for x, y in zip(*outs):
+        assert torch.equal(x, y)
+
+
+def test_gauss_newton_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    f, src, Jp, wmap = [a.float().to(cuda) for a in _gn_inputs(2, 8, 6, 10)]
+    before = gn.normal_equations.launches
+    with pytest.raises(TypeError, match="float32"):
+        gn.normal_equations(f.double(), src, Jp, wmap)
+    with pytest.raises(TypeError, match="float32"):
+        gn.normal_equations(f, src, Jp, wmap.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.normal_equations(f, src, Jp.transpose(2, 3).contiguous()
+                            .transpose(2, 3), wmap)
+    with pytest.raises(ValueError, match="contiguous"):
+        gn.normal_equations(f[..., ::2], src[..., ::2], Jp[:, ::2], wmap[:, ::2])
+    with pytest.raises(ValueError, match=r"\(B, C, 5, N\)"):
+        gn.normal_equations(f[:, :, :3].contiguous(), src, Jp, wmap)
+    with pytest.raises(ValueError, match="src_feat"):
+        gn.normal_equations(f, src[:, :4].contiguous(), Jp, wmap)
+    with pytest.raises(ValueError, match="J_pixel_xi"):
+        gn.normal_equations(f, src, Jp.reshape(2, 60, 12), wmap)
+    with pytest.raises(ValueError, match="is on cpu"):
+        gn.normal_equations(f, src, Jp, wmap.cpu())
+    assert gn.normal_equations.launches == before
